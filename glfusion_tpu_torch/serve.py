@@ -1,0 +1,206 @@
+"""Pipelined online clip inference (the serving path) on the card.
+
+The port of ``glfusion_tpu/serve.py::ClipPipeline``. Three stages overlap:
+
+  decode  (NIfTI decode and normalization in a host thread pool)
+    ‖ forward (enqueued on the current CUDA stream; up to ``depth`` clips
+      are in flight on the card while the host decodes the next ones)
+    ‖ fetch (the thresholded uint8 masks, 4× smaller than float32 logits,
+      are copied into pinned host memory without blocking; a CUDA event
+      marks the copy's end and the clip is yielded once it has completed)
+
+Every clip is padded or trimmed on the host to ``clip_length`` frames, the
+JAX contract; the true frame count trims the yielded prediction. The AOT
+export arguments of the JAX pipeline are ROADMAP M12.
+"""
+
+from __future__ import annotations
+
+import collections
+from concurrent.futures import ThreadPoolExecutor
+from typing import Any, Callable, Dict, Iterable, Iterator, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from glfusion_tpu_torch.config import Config
+from glfusion_tpu_torch.data.nifti import read_nifti_py
+from glfusion_tpu_torch.data.pipeline import align_views
+
+
+def resolve_device(device=None) -> torch.device:
+    """``cuda`` unless the caller names a device. Never a silent fallback:
+    without CUDA, only an explicit ``device='cpu'`` runs."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "CUDA is not available; pass device='cpu' to run the port "
+                "on the CPU")
+        return torch.device("cuda", torch.cuda.current_device())
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {dev} requested but CUDA is not available")
+    return dev
+
+
+class ClipPipeline:
+    """Overlapped decode → forward → fetch over a stream of clips.
+
+    Parameters
+    ----------
+    cfg: the run's :class:`Config`; ``cfg.model.views`` and
+        ``cfg.data.clip_length`` shape the input.
+    model: the flagship ``GlobalAndLocal`` with its weights; it is moved to
+        ``device`` and put in eval mode.
+    depth: clips kept in flight on the card.
+    threads: host decode workers.
+    device: ``None`` → CUDA (raises without it); ``"cpu"`` for tests.
+    """
+
+    def __init__(self, cfg: Config, model: torch.nn.Module, depth: int = 2,
+                 threads: int = 2, device=None):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.model = model.to(self.device).eval()
+        self.depth = max(1, depth)
+        self.threads = max(1, threads)
+
+    # ------------------------------------------------------------- helpers
+
+    def _pad_clip(self, images: np.ndarray) -> Tuple[np.ndarray, int]:
+        """Pad/trim (V, T, H, W, 1) to clip_length frames; returns the clip
+        and its true frame count."""
+        t_fix = self.cfg.data.clip_length
+        t = images.shape[1]
+        if t > t_fix:
+            return images[:, :t_fix], t_fix
+        if t == t_fix:
+            return images, t
+        pad = np.zeros((images.shape[0], t_fix - t) + images.shape[2:],
+                       images.dtype)
+        return np.concatenate([images, pad], axis=1), t
+
+    def _enqueue(self, images: np.ndarray):
+        """Start one padded clip's forward; returns (host masks, event).
+
+        On the card the upload, the forward and the copy of the uint8
+        masks into pinned memory are all enqueued on the current stream;
+        the event marks the copy's end. On the CPU the masks are ready.
+        """
+        x = torch.from_numpy(np.ascontiguousarray(images, np.float32))
+        cuda = self.device.type == "cuda"
+        if cuda:
+            x = x.pin_memory().to(self.device, non_blocking=True)
+        with torch.inference_mode():
+            out = self.model(x)
+            # sigmoid > 0.5 == logit > 0
+            masks = (out["mask"] > 0).to(torch.uint8).contiguous()
+            if not cuda:
+                return masks, None
+            host = torch.empty(masks.shape, dtype=torch.uint8,
+                               pin_memory=True)
+            host.copy_(masks, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return host, event
+
+    @staticmethod
+    def _fetch(host: torch.Tensor, event, t_true: int) -> np.ndarray:
+        if event is not None:
+            event.synchronize()
+        return host[:, :t_true].numpy().copy()  # release the pinned buffer
+
+    # -------------------------------------------------------------- stream
+
+    def predict_iter(
+        self,
+        items: Iterable[Any],
+        decode: Callable[[Any], Tuple[str, np.ndarray]],
+    ) -> Iterator[Tuple[str, np.ndarray]]:
+        """Yield ``(clip_id, masks)`` for each item, pipelined.
+
+        ``decode(item) -> (clip_id, images)`` runs in the host thread pool
+        (images (V, T, H, W, 1) float32 in [0,1], or None to skip the clip);
+        yielded masks are (V, T_true, H, W, classes) uint8, in input order.
+        """
+        items_it = iter(items)
+        with ThreadPoolExecutor(max_workers=self.threads) as ex:
+            decoded = collections.deque()   # decode futures, input order
+            inflight = collections.deque()  # (clip_id, t_true, host, event)
+
+            def submit() -> bool:
+                try:
+                    item = next(items_it)
+                except StopIteration:
+                    return False
+                decoded.append(ex.submit(decode, item))
+                return True
+
+            for _ in range(self.threads + 1):
+                if not submit():
+                    break
+
+            while decoded or inflight:
+                # drain a finished prediction once the window is full (or
+                # nothing is left to feed)
+                if inflight and (len(inflight) >= self.depth or not decoded):
+                    cid, t_true, host, event = inflight.popleft()
+                    yield cid, self._fetch(host, event, t_true)
+                    continue
+                cid, images = decoded.popleft().result()
+                submit()
+                if images is None:
+                    continue  # no requested view present: skip the clip
+                images, t_true = self._pad_clip(np.asarray(images))
+                inflight.append((cid, t_true, *self._enqueue(images)))
+
+    # --------------------------------------------------------- conveniences
+
+    def decode_paths(self, item: Tuple[str, Dict[str, str]]):
+        """Decode one ``(clip_id, {view: image_path})`` to (cid, images):
+        each view read with the NIfTI reader, /255-normalized and stacked at
+        its native spatial size (see :meth:`stack_raw_views`)."""
+        cid, paths = item
+        return cid, self.stack_raw_views(
+            {v: read_nifti_py(p) for v, p in paths.items() if p is not None})
+
+    def stack_raw_views(self, vols_by_view: Dict[str, np.ndarray]):
+        """Raw per-view volumes → the (V, T, H, W, 1) forward input.
+
+        Each volume is a raw uint8-range array, (1, H, W, T) or (H, W, T);
+        it is /255-normalized and re-laid-out, then views are aligned to one
+        common frame count (≤ clip_length) with zeros for missing views.
+        Returns ``None`` when no requested view is present.
+        """
+        vols = []
+        for view in self.cfg.model.views:
+            raw = vols_by_view.get(view)
+            if raw is None:
+                vols.append(None)
+                continue
+            vol = np.asarray(raw, np.float32) / 255.0
+            # an unconditional squeeze() would also collapse T on
+            # single-frame clips
+            if vol.ndim == 4 and vol.shape[0] == 1:
+                vol = vol[0]
+            if vol.ndim == 2:
+                vol = vol[..., None]  # single frame: (H, W) → (H, W, 1)
+            if vol.ndim != 3:
+                raise ValueError(
+                    f"view {view}: expected (H, W, T) or (1, H, W, T) "
+                    f"volume, got shape {np.asarray(raw).shape}")
+            vols.append(np.moveaxis(vol, -1, 0)[..., None])  # (T, H, W, 1)
+        images, _ = align_views(vols, self.cfg.data.clip_length)
+        return images
+
+    def predict_one(self, images: np.ndarray) -> np.ndarray:
+        """Serial single-clip prediction (no pipelining): uint8 masks."""
+        images, t_true = self._pad_clip(np.asarray(images))
+        return self._fetch(*self._enqueue(images), t_true)
+
+    def predict_paths(
+        self,
+        clips: Sequence[Tuple[str, Dict[str, str]]],
+    ) -> Iterator[Tuple[str, np.ndarray]]:
+        """Serve from NIfTI paths: ``(clip_id, {view: image_path})``."""
+        return self.predict_iter(clips, self.decode_paths)
