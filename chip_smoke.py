@@ -12,16 +12,16 @@ nonzero:
           switched off for matmuls and cuDNN, for every comparison below.
   build   nvcc builds the port's CUDA kernel from the checkout's sources.
   kernel  the TPAVI kernel against its plain PyTorch version at small,
-          ragged and serving shapes, float32 and bfloat16, with its time, the
-          plain version's, a cuBLAS yardstick's and the card's bound.
+          ragged and serving shapes, float32 and bfloat16, on contiguous and
+          on strided (split-projection) operands, with its time, the plain
+          version's, a cuBLAS yardstick's and the card's bound.
   serve   the full-width flagship (``Config().model`` with
           ``use_pallas_fusion=True``, random weights from seed 0) serves four
-          NIfTI clips through ``ClipPipeline``; the masks, the kernel's
-          launch count and the agreement with plain-torch attention orders
-          are checked.
-  profile where one serving forward's device time goes (torch.profiler),
-          and the ASPP branch convolutions timed alone; printed before the
-          serve line.
+          NIfTI clips through ``ClipPipeline``; the masks and the kernel's
+          launch count are checked, and a 112² and the 160² clip are held
+          against the plain-torch naive and reassociated attention orders.
+  profile where one serving forward's device time goes (torch.profiler);
+          printed before the serve line.
 
 The last lines are the kernels' record, the card's ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``. Without CUDA, or outside a checkout, it
@@ -91,6 +91,20 @@ def check(cond: bool, msg: str) -> None:
         raise AssertionError(msg)
 
 
+def kernel_error(torch, theta, phi, g):
+    """The kernel against its plain version: (max|y-ref|, that / max|ref|)."""
+    from glfusion_tpu_torch.ops.tpavi_fused import (fused_dot_nonlocal,
+                                                    fused_dot_nonlocal_plain)
+
+    y = fused_dot_nonlocal(theta, phi, g)
+    torch.cuda.synchronize()
+    ref = fused_dot_nonlocal_plain(theta, phi, g).float()
+    check(y.dtype == theta.dtype and y.shape == theta.shape,
+          f"kernel output {y.dtype} {tuple(y.shape)}")
+    abs_err = (y.float() - ref).abs().max().item()
+    return abs_err, abs_err / ref.abs().max().item()
+
+
 def kernel_phase(torch):
     from glfusion_tpu_torch.ops.nonlocal_attn import dot_nonlocal_attention
     from glfusion_tpu_torch.ops.tpavi_fused import (fused_dot_nonlocal,
@@ -104,17 +118,19 @@ def kernel_phase(torch):
             theta, phi, g = (torch.randn(b, n, c, device="cuda",
                                          generator=gen).to(dt)
                              for _ in range(3))
-            y = fused_dot_nonlocal(theta, phi, g)
-            torch.cuda.synchronize()
-            ref = fused_dot_nonlocal_plain(theta, phi, g).float()
-            check(y.dtype == dt and y.shape == (b, n, c),
-                  f"kernel output {y.dtype} {tuple(y.shape)}")
-            abs_err = (y.float() - ref).abs().max().item()
-            rel_err = abs_err / ref.abs().max().item()
+            abs_err, rel_err = kernel_error(torch, theta, phi, g)
             check(math.isfinite(rel_err) and rel_err <= KERNEL_TOL[dt_name],
                   f"kernel {(b, n, c)} {dt_name}: relative error {rel_err} "
                   f"> {KERNEL_TOL[dt_name]}")
-            del y, ref
+            # the eval path's operands: strided views of one (B, N, 3C')
+            # projection, passed with their row stride 3C'
+            split = torch.randn(b, n, 3 * c, device="cuda",
+                                generator=gen).to(dt).split(c, dim=-1)
+            _, strided_rel_err = kernel_error(torch, *split)
+            check(strided_rel_err <= KERNEL_TOL[dt_name],
+                  f"kernel {(b, n, c)} {dt_name}, strided operands: relative "
+                  f"error {strided_rel_err} > {KERNEL_TOL[dt_name]}")
+            del split
             reps = 10
             kernel_ms = time_ms(torch, lambda: fused_dot_nonlocal(
                 theta, phi, g), reps)
@@ -126,16 +142,21 @@ def kernel_phase(torch):
                 torch.bmm(theta, phi.transpose(1, 2)) / n, g), reps)
             reassoc_ms = time_ms(torch, lambda: dot_nonlocal_attention(
                 theta, phi, g, impl="reassoc"), reps)
-            flops = 4 * b * n * n * c
-            nbytes = 4 * b * n * c * theta.element_size()
-            t_ops = flops / PEAK_FLOPS[dt_name] * 1e3
-            t_bytes = nbytes / PEAK_BYTES * 1e3
+            # The function needs two products in the cheaper order:
+            # 4·B·N·C'·min(N, C') FLOP (the naive order, 4·B·N²·C', is
+            # printed beside it).
+            peak = PEAK_FLOPS[dt_name]
+            t_ops = 4 * b * n * c * min(n, c) / peak * 1e3
+            t_bytes = 4 * b * n * c * theta.element_size() / PEAK_BYTES * 1e3
             rec = {
                 "shape": [b, n, c], "dtype": dt_name,
                 "rel_err": rel_err, "max_abs_err": abs_err,
+                "strided_rel_err": strided_rel_err,
                 "tol": KERNEL_TOL[dt_name], "kernel_ms": kernel_ms,
                 "bound_ms": max(t_ops, t_bytes),
                 "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                "naive_order_bound_ms": max(4 * b * n * n * c / peak * 1e3,
+                                            t_bytes),
                 "plain_ms": plain_ms, "library_ms": library_ms,
                 "reassoc_ms": reassoc_ms,
             }
@@ -258,7 +279,7 @@ def serve_phase(torch):
     check(launches == 2 * len(CLIPS),
           f"kernel launches {launches} != 2 per clip x {len(CLIPS)}")
 
-    # ---- agreement on the first clip (launches here are not counted)
+    # ---- timing and agreement (launches here are not counted)
     images, _ = pipe._pad_clip(decoded["c0"])
     x = torch.from_numpy(images).cuda()
     with torch.inference_mode():
@@ -272,18 +293,45 @@ def serve_phase(torch):
         pipe._fetch(host, event, CLIPS[0][2])
         stages = {"enqueue": t1 - t0, "wait_and_fetch":
                   time.perf_counter() - t1}  # host seconds, one clip
+    re_cfg = dataclasses.replace(cfg.model, use_pallas_fusion=False)
+    model_re = GlobalAndLocal(re_cfg)
+    model_re.load_state_dict(model.state_dict())
+    model_re = model_re.cuda().eval()
+    # the first 112² clip and the 160² clip, whose kernel calls see
+    # N = 2352 and N = 4800 on the eval path's strided operands
+    agreement = {}
+    for i in (0, 3):
+        cid, _, t_true = CLIPS[i]
+        agreement[cid] = clip_agreement(
+            torch, model, model_re, pipe._pad_clip(decoded[cid])[0],
+            served[i][1], t_true)
+    profile_phase(torch, model, x)
+    emit("serve", clips=len(served), frames=frames, wall_s=wall,
+         clips_per_s=len(served) / wall, frames_per_s=frames / wall,
+         view_frames_per_s=frames * len(views) / wall,
+         yield_s=yield_s, decode_s_all_clips=decode_s,
+         enqueue_stage_s=stages,
+         forward_ms_median_112=fwd_ms, forward_ms_160=fwd_ms_160,
+         max_memory_allocated=peak,
+         kernel_launches=launches, agreement=agreement)
+    return launches
+
+
+def clip_agreement(torch, model, model_re, images, served_masks,
+                   t_true: int) -> dict:
+    """One clip through the kernel path, the naive order (plain torch) and
+    the reassociated model: f4 within 1e-4 of the naive order, mask logits
+    within 1e-3 of the reassociated order, uint8 masks (direct and served)
+    differing only where |logit| is within that error."""
+    x = torch.from_numpy(images).cuda()
+    with torch.inference_mode():
         out_k = model(x)
         for attn in (model.global_attn, model.local_attn):
             attn.attn_impl = "naive"
         out_n = model(x)
         for attn in (model.global_attn, model.local_attn):
             attn.attn_impl = "pallas"
-        re_cfg = dataclasses.replace(cfg.model, use_pallas_fusion=False)
-        model_re = GlobalAndLocal(re_cfg)
-        model_re.load_state_dict(model.state_dict())
-        model_re = model_re.cuda().eval()
         out_r = model_re(x)
-    t_true = CLIPS[0][2]
     for k, v in out_k.items():
         check(bool(torch.isfinite(v).all()), f"{k} not finite")
     f4_err = {}
@@ -299,28 +347,20 @@ def serve_phase(torch):
     differ = (logit_k > 0) != (logit_r > 0)
     check(bool((logit_k[differ].abs() <= mask_abs).all()),
           "uint8 masks differ at a pixel whose |logit| exceeds the error")
-    served_c0 = torch.from_numpy(served[0][1]).cuda().bool()
-    differ_pipe = (logit_k[:, :t_true] > 0) != served_c0
+    served_t = torch.from_numpy(served_masks).cuda().bool()
+    differ_pipe = (logit_k[:, :t_true] > 0) != served_t
     pipe_logit_max = float(logit_k[:, :t_true][differ_pipe].abs().max()) \
         if bool(differ_pipe.any()) else 0.0
     check(pipe_logit_max <= mask_abs,
           f"pipeline masks differ from the direct forward at |logit| "
           f"{pipe_logit_max} > {mask_abs}")
-    profile_phase(torch, model, x)
-    fg = float((logit_k > 0).float().mean())
-    emit("serve", clips=len(served), frames=frames, wall_s=wall,
-         clips_per_s=len(served) / wall, frames_per_s=frames / wall,
-         view_frames_per_s=frames * len(views) / wall,
-         yield_s=yield_s, decode_s_all_clips=decode_s,
-         enqueue_stage_s=stages,
-         forward_ms_median_112=fwd_ms, forward_ms_160=fwd_ms_160,
-         max_memory_allocated=peak,
-         kernel_launches=launches, f4_rel_err_vs_naive=f4_err,
-         mask_rel_err_vs_reassoc=mask_rel, mask_abs_err_vs_reassoc=mask_abs,
-         mask_pixels_differing=int(differ.sum()), mask_foreground=fg,
-         pipeline_pixels_differing=int(differ_pipe.sum()),
-         pipeline_differing_max_logit=pipe_logit_max)
-    return launches
+    return {"f4_rel_err_vs_naive": f4_err,
+            "mask_rel_err_vs_reassoc": mask_rel,
+            "mask_abs_err_vs_reassoc": mask_abs,
+            "mask_pixels_differing": int(differ.sum()),
+            "mask_foreground": float((logit_k > 0).float().mean()),
+            "pipeline_pixels_differing": int(differ_pipe.sum()),
+            "pipeline_differing_max_logit": pipe_logit_max}
 
 
 def _category(name: str) -> str:
@@ -356,32 +396,11 @@ def profile_phase(torch, model, x) -> None:
         by_cat[cat] = by_cat.get(cat, 0.0) + e.self_device_time_total / 1e3
     device_ms = sum(by_cat.values())
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
-
-    # The ASPP branch convolutions of one head call on one view's f4, each
-    # timed alone: on an NCHW-contiguous input and on a channels-last one,
-    # with cuDNN's heuristic choice (as served) and with its autotuner.
-    view = model.cfg.views[0]
-    with torch.inference_mode():
-        f4 = model._backbone(view, x[0, ..., 0].unsqueeze(1))
-        inputs = {"nchw": f4,
-                  "channels_last": f4.contiguous(
-                      memory_format=torch.channels_last)}
-        convs = [branch[0] for branch in model.classifier[view][0].convs[:-1]]
-        names = ["1x1"] + [f"rate{r}" for r in model.cfg.aspp_rates]
-        branch_ms = {}
-        for layout, inp in inputs.items():
-            for mode in ("heuristic", "autotuned"):
-                torch.backends.cudnn.benchmark = mode == "autotuned"
-                branch_ms[f"{layout}/{mode}"] = {
-                    name: time_ms(torch, lambda: conv(inp), reps=3, warmup=1)
-                    for name, conv in zip(names, convs)}
-        torch.backends.cudnn.benchmark = False
     emit("profile", wall_ms=wall_ms, device_ms=device_ms,
          idle_share=max(0.0, 1 - device_ms / wall_ms),
          device_ms_by_category=by_cat,
          top_kernels=[{"name": e.key[:100], "ms": e.self_device_time_total
-                       / 1e3, "calls": e.count} for e in top],
-         aspp_branch_conv_ms=branch_ms)
+                       / 1e3, "calls": e.count} for e in top])
 
 
 def main() -> None:

@@ -9,14 +9,17 @@
 // float32 for the second product, and divides by the TRUE token count N.
 // Inputs are float32 or bfloat16; the output has the input's type.
 //
-// Bound on an H100 at the serving shape B = 40, N = 2352, C' = 1024: the two
-// products are 4·B·N²·C' = 9.06e11 FLOP per call, while the bytes it must
-// move are 4·B·N·C'·itemsize = 1.54 GB in float32. At 67 TFLOP/s (float32
+// Bound on an H100 at the serving shape B = 40, N = 2352, C' = 1024. The
+// function needs 4·B·N·C'·min(N, C') = 3.95e11 FLOP per call (the
+// reassociated order θ(φᵀg)/N, since N > C'), while the bytes it must move
+// are 4·B·N·C'·itemsize = 1.54 GB in float32. At 67 TFLOP/s (float32
 // outside the tensor cores) against 3.35 TB/s the call is compute-bound:
-// 13.5 ms of FMA against 0.46 ms of memory. In bfloat16 against the 989
-// TFLOP/s tensor-core peak the bound is 0.92 ms; this kernel does not use
-// the tensor cores yet (plain FMA on float32 values in both types), so
-// bfloat16 gains nothing over float32.
+// 5.9 ms of FMA against 0.46 ms of memory. In bfloat16 against the 989
+// TFLOP/s tensor-core peak the bound is 0.40 ms. This kernel keeps the naive
+// order, 4·B·N²·C' = 9.06e11 FLOP (13.5 ms of FMA at best), so it cannot
+// reach the function's bound at N > C'; nor does it use the tensor cores
+// yet (plain FMA on float32 values in both types), so bfloat16 gains
+// nothing over float32.
 //
 // Design. The Pallas kernel keeps whole (T, C'_pad) rows in 14 MiB of VMEM;
 // a Hopper block cannot. This kernel takes design (a): one block owns
