@@ -1,1 +1,2 @@
-"""Host-side data handling of the port (numpy, no device work)."""
+"""Data of the port: NIfTI, the dataset index, the synthetic corpus, the
+host loaders (numpy) and the device-side batch preprocess."""

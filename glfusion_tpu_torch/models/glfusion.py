@@ -13,10 +13,11 @@ The port of ``glfusion_tpu/models/glfusion.py`` (variant
 
 The per-view backbones and heads are ``nn.ModuleDict``s under the
 reference's names (``init_block.{v}``, ``layer{s}.{v}``, ``classifier.{v}``,
-``centerness.{v}``), run in a Python loop over views. Per-view replicas start
-from independent initial weights here; the JAX package starts them equal.
-Weights carried between the two (``utils/convert.py``) are what the tests
-compare.
+``centerness.{v}``), run in a Python loop over views. Every view starts from
+the SAME initial weights: one view's stem, stages and heads are built and
+``copy.deepcopy``-ed for the others, as the reference does
+(``ours.py:1724-1744``) and as the JAX package does with
+``split_rngs={'params': False}``. Views diverge only through their data.
 
 At the public interface the layouts are the JAX ones: input (V, B, H, W, 1),
 ``mask``/``mask_bb`` (V, B, H, W, classes), ``f4_global``/``f4_local``
@@ -25,6 +26,7 @@ At the public interface the layouts are the JAX ones: input (V, B, H, W, 1),
 
 from __future__ import annotations
 
+import copy
 from typing import Dict, List
 
 import torch
@@ -67,17 +69,19 @@ class GlobalAndLocal(nn.Module):
         self.layer4 = nn.ModuleDict()
         self.classifier = nn.ModuleDict()
         self.centerness = nn.ModuleDict()
-        for v in cfg.views:
-            self.init_block[v] = iekd_stem(cfg.stem_width)
-            stages = make_stages(cfg.stem_width, cfg.block_sizes, cfg.widths,
-                                 cfg.expansion, cfg.dilate_stages)
-            for s, stage in enumerate(stages, 1):
-                getattr(self, f"layer{s}")[v] = stage
-            for name, outs in (("classifier", cfg.num_classes),
-                               ("centerness", 1)):
-                getattr(self, name)[v] = DeepLabHead(
-                    c, outs, cfg.aspp_channels, cfg.aspp_rates,
-                    cfg.aspp_dropout)
+        first = nn.ModuleDict({"init_block": iekd_stem(cfg.stem_width)})
+        stages = make_stages(cfg.stem_width, cfg.block_sizes, cfg.widths,
+                             cfg.expansion, cfg.dilate_stages)
+        for s, stage in enumerate(stages, 1):
+            first[f"layer{s}"] = stage
+        for name, outs in (("classifier", cfg.num_classes),
+                           ("centerness", 1)):
+            first[name] = DeepLabHead(c, outs, cfg.aspp_channels,
+                                      cfg.aspp_rates, cfg.aspp_dropout)
+        for i, v in enumerate(cfg.views):
+            view = first if i == 0 else copy.deepcopy(first)
+            for name, mod in view.items():
+                getattr(self, name)[v] = mod
         impl = "pallas" if cfg.use_pallas_fusion else "auto"
         self.global_attn = TPAVI(c, cfg.tpavi_inter_channels, impl)
         self.local_attn = TPAVI(c, cfg.tpavi_inter_channels, impl)

@@ -1,0 +1,39 @@
+"""Optimizer and learning-rate schedule with the reference's semantics.
+
+The port of ``glfusion_tpu/train/train_state.py``: ``Adam(lr=3e-4,
+weight_decay=1e-5)`` with ``CosineAnnealingLR(T_max=100)`` stepped once per
+EPOCH (reference ``main.py:162-169,257``). torch's own Adam is the
+semantics the JAX package copies: the L2 term is added to the gradient
+before the moments (not AdamW), eps 1e-8. The cosine is a closed-form
+``LambdaLR`` that holds at the floor after ``T_max`` epochs, as the JAX
+schedule does (``CosineAnnealingLR``'s recurrence would rise again).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Iterable
+
+import torch
+
+from glfusion_tpu_torch.config import Config
+
+
+def cosine_factor(epoch: int, t_max: int) -> float:
+    """lr(epoch) / base lr: 0.5·(1 + cos(π·min(epoch, T_max)/T_max))."""
+    return 0.5 * (1.0 + math.cos(math.pi * min(epoch, t_max) / t_max))
+
+
+def make_optimizer(cfg: Config,
+                   params: Iterable[torch.nn.Parameter]) -> torch.optim.Adam:
+    return torch.optim.Adam(params, lr=cfg.opt.lr,
+                            betas=tuple(cfg.opt.betas), eps=1e-8,
+                            weight_decay=cfg.opt.weight_decay)
+
+
+def make_scheduler(cfg: Config, optimizer: torch.optim.Optimizer
+                   ) -> torch.optim.lr_scheduler.LambdaLR:
+    """Per-epoch cosine; call ``.step()`` once at the end of each epoch."""
+    t_max = cfg.opt.cosine_t_max
+    return torch.optim.lr_scheduler.LambdaLR(
+        optimizer, lambda epoch: cosine_factor(epoch, t_max))

@@ -167,3 +167,22 @@ def test_convolutions_run_in_nchw(jax_case):
     assert len(seen) > 100
     for t in seen:
         assert t.stride() == torch.empty(t.shape).stride(), t.shape
+
+
+def test_carried_weights_stay_per_view(jax_case, jax_eval):
+    """With every view deep-copied from one at init, weights carried from
+    JAX (different in each view) still land in each view's own tensors and
+    give the serving slice's outputs: the JAX eval forward,
+    atol = rtol = 2e-4."""
+    _, v, x = jax_case
+    m = _port(v).eval()
+    sd = state_dict_from_jax(v, CFG)
+    for view in CFG.views:
+        k = f"init_block.{view}.0.weight"
+        assert torch.equal(m.state_dict()[k], sd[k])
+    w1, w3 = (m.init_block[view][0].weight for view in ("1", "3"))
+    assert not torch.equal(w1, w3) and w1.data_ptr() != w3.data_ptr()
+    with torch.no_grad():
+        out = m(torch.from_numpy(x))
+    np.testing.assert_allclose(out["mask"].numpy(),
+                               np.asarray(jax_eval["mask"]), **TOL)
