@@ -54,9 +54,9 @@ class ModelConfig:
     # Compute dtype for conv/matmul (params stay fp32).
     dtype: str = "float32"
     # In the port: run the TPAVI products through the hand-written CUDA
-    # kernel (glfusion_tpu_torch/csrc/tpavi_fused.cu), which keeps the
-    # reference's naive contraction order (θφᵀ/N)·g. Default False: the
-    # reassociated θ(φᵀg)/N order on plain matmuls, equal in real arithmetic.
+    # kernel (glfusion_tpu_torch/csrc/tpavi_fused.cu), in the cheaper of the
+    # two contraction orders. Default False: the reassociated θ(φᵀg)/N order
+    # on plain matmuls, equal in real arithmetic.
     use_pallas_fusion: bool = False
     # Rematerialize backbone stages (not yet ported).
     remat: bool = False

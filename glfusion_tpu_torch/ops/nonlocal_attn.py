@@ -7,8 +7,9 @@ channels the reference computes ``y = (θφᵀ / N)·g``. Two orders:
 * ``reassoc``: ``θ(φᵀg) / N`` through a (B, C', C') intermediate, equal in
   real arithmetic and cheaper when N > C'.
 
-``auto`` takes ``reassoc`` when N > C'. The fused kernel of the naive order
-is ``glfusion_tpu_torch.ops.tpavi_fused``.
+``auto`` takes ``reassoc`` when N > C'. The hand-written kernel of the
+same function, in the same cheaper order, is
+``glfusion_tpu_torch.ops.tpavi_fused``.
 """
 
 from __future__ import annotations

@@ -1,9 +1,13 @@
-"""Fused TPAVI dot non-local attention: y = (θφᵀ / N)·g on (B, N, C').
+"""TPAVI dot non-local attention: y = (θφᵀ / N)·g on (B, N, C').
 
 The port of ``glfusion_tpu/ops/tpavi_pallas.py``. The forward is the
-hand-written CUDA kernel ``glfusion_tpu_torch/csrc/tpavi_fused.cu`` (naive
-order, the N×N map never leaves the chip, float32 accumulation, float32 or
-bfloat16 in and out). The backward is the three reassociated products of
+hand-written CUDA source ``glfusion_tpu_torch/csrc/tpavi_fused.cu``: the
+TPU kernel's function in the cheaper contraction order, as two launches of
+one batched-GEMM engine (FFMA register tiles for float32, wgmma fed by TMA
+for bfloat16). At N > C' it forms M = φᵀg (C' × C') and then θM/N, so the
+N×N map never exists; at N <= C' it forms S = θφᵀ (N × N) and then Sg/N.
+The intermediate is kept in the input type, float32 accumulation, float32
+or bfloat16 in and out. The backward is the three reassociated products of
 the JAX custom VJP, which are plain products there too.
 
 ``fused_dot_nonlocal`` takes the plain version only for tensors on the
@@ -14,26 +18,49 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Callable
 
 import torch
 
 from glfusion_tpu_torch.ops import _build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_CHANNELS = 1024  # the kernel keeps 4 channels × 256 threads in registers
 _SOURCE = "tpavi_fused"
+# bfloat16 operands go through TMA, which needs 16-byte aligned rows;
+# float32 workspace rows are padded to 16 bytes for the vector copies
+_ROW_ALIGN = {torch.float32: 4, torch.bfloat16: 8}
+
+
+def reassociated(n: int, c: int) -> bool:
+    """The kernel's order: θ(φᵀg) when N > C', else (θφᵀ)g."""
+    return n > c
+
+
+def fused_dot_nonlocal_naive(theta: torch.Tensor, phi: torch.Tensor,
+                             g: torch.Tensor) -> torch.Tensor:
+    """The reference's naive chain (θφᵀ/N)·g with the N×N map
+    materialized, in float32 (float64 for float64 operands), cast back to
+    the input type: the check independent of the kernel's order."""
+    n = theta.shape[-2]
+    acc = torch.promote_types(theta.dtype, torch.float32)
+    f = torch.bmm(theta.to(acc), phi.to(acc).transpose(1, 2))
+    return torch.bmm(f / n, g.to(acc)).to(theta.dtype)
 
 
 def fused_dot_nonlocal_plain(theta: torch.Tensor, phi: torch.Tensor,
                              g: torch.Tensor) -> torch.Tensor:
-    """The naive chain (θφᵀ/N)·g in float32, cast back to the input type.
-
-    The reference order of the kernel; the N×N map is materialized.
-    """
-    n = theta.shape[-2]
+    """The kernel's arithmetic in plain PyTorch: the same order, float32
+    products, the intermediate rounded once to the input type."""
+    n, c = theta.shape[-2:]
     f32 = torch.float32
-    f = torch.bmm(theta.to(f32), phi.to(f32).transpose(1, 2))
-    return torch.bmm(f / n, g.to(f32)).to(theta.dtype)
+    t, p, gg = (x.to(f32) for x in (theta, phi, g))
+    if reassociated(n, c):
+        m = torch.bmm(p.transpose(1, 2), gg).to(theta.dtype).to(f32)
+        y = torch.bmm(t, m)
+    else:
+        s = torch.bmm(t, p.transpose(1, 2)).to(theta.dtype).to(f32)
+        y = torch.bmm(s, gg)
+    return (y / n).to(theta.dtype)
 
 
 @functools.lru_cache(maxsize=None)
@@ -41,22 +68,57 @@ def _library() -> ctypes.CDLL:
     """The kernel's library, built at first use, with its C signatures."""
     lib = _build.load(_SOURCE)
     p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    lib.tpavi_fused_dot_nonlocal.argtypes = [
-        p, p, p, p, i, i, i, i, ll, ll, ll, ll, ll, ll, i, p]
-    lib.tpavi_fused_dot_nonlocal.restype = i
+    lib.tpavi_gemm.argtypes = [
+        i, i, i, p, ll, ll, p, ll, ll, p, ll, ll, i, i, i, i,
+        ctypes.c_float, i, p]
+    lib.tpavi_gemm.restype = i
     lib.tpavi_error_string.argtypes = [i]
     lib.tpavi_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _launch(theta: torch.Tensor, phi: torch.Tensor,
-            g: torch.Tensor) -> torch.Tensor:
-    """Check the operands and launch the CUDA kernel on the current stream."""
-    dev = theta.device
-    if dev.type != "cuda" or phi.device != dev or g.device != dev:
-        raise ValueError(
-            f"fused_dot_nonlocal: operands on {theta.device}, {phi.device}, "
-            f"{g.device}; the kernel needs all three on one CUDA device")
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _strides(t: torch.Tensor) -> tuple[int, int]:
+    """(batch stride, row stride); a batch of one gets a dense batch
+    stride, whatever torch reports for it."""
+    sb = t.stride(0) if t.shape[0] > 1 else t.shape[1] * t.stride(1)
+    return sb, t.stride(1)
+
+
+def _tma_ready(t: torch.Tensor) -> bool:
+    """A bfloat16 operand whose base and strides are 16-byte multiples."""
+    sb, ld = _strides(t)
+    return t.data_ptr() % 16 == 0 and sb % 8 == 0 and ld % 8 == 0
+
+
+def _gemm(a: torch.Tensor, a_mn: bool, b: torch.Tensor, b_mn: bool,
+          c: torch.Tensor, m: int, n: int, k: int,
+          div: float) -> Callable[[], None]:
+    """One launch of the engine, C = A·B / div, as a closure. A is (B, K, M)
+    in memory if ``a_mn``, else (B, M, K); B is (B, K, N) if ``b_mn``, else
+    (B, N, K); C is (B, M, ≥N)."""
+    lib = _library()
+    dev = c.device
+
+    def run() -> None:  # holds a, b and c alive as long as it lives
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.tpavi_gemm(
+            _DTYPE_CODES[c.dtype], int(a_mn), int(b_mn), a.data_ptr(),
+            *_strides(a), b.data_ptr(), *_strides(b), c.data_ptr(),
+            *_strides(c), c.shape[0], m, n, k, float(div), dev.index, stream)
+        if err != 0:
+            raise RuntimeError(
+                f"fused_dot_nonlocal: kernel launch failed with CUDA error "
+                f"{err} ({lib.tpavi_error_string(err).decode()})")
+
+    return run
+
+
+def _check(theta: torch.Tensor, phi: torch.Tensor, g: torch.Tensor) -> None:
+    """Dtype, shape and channel stride, then the device."""
     if theta.dtype not in _DTYPE_CODES or not (
             theta.dtype == phi.dtype == g.dtype):
         raise TypeError(
@@ -67,29 +129,60 @@ def _launch(theta: torch.Tensor, phi: torch.Tensor,
             f"fused_dot_nonlocal: shapes {tuple(theta.shape)}, "
             f"{tuple(phi.shape)}, {tuple(g.shape)}; need three equal "
             f"(B, N, C')")
-    b, n, c = theta.shape
-    if not (0 < c <= MAX_CHANNELS and n > 0 and 0 < b <= 65535):
+    if min(theta.shape) <= 0:
         raise ValueError(
-            f"fused_dot_nonlocal: (B, N, C') = {(b, n, c)}; the kernel takes "
-            f"1 <= B <= 65535, N >= 1 and 1 <= C' <= {MAX_CHANNELS}")
+            f"fused_dot_nonlocal: (B, N, C') = {tuple(theta.shape)}; the "
+            f"kernel takes no empty dimension")
     for name, t in (("theta", theta), ("phi", phi), ("g", g)):
         if t.stride(2) != 1:
             raise ValueError(
                 f"fused_dot_nonlocal: {name} has channel stride "
                 f"{t.stride(2)}; the kernel needs contiguous channels")
-    out = torch.empty((b, n, c), dtype=theta.dtype, device=dev)
-    lib = _library()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    ptr = ctypes.c_void_p
-    err = lib.tpavi_fused_dot_nonlocal(
-        ptr(theta.data_ptr()), ptr(phi.data_ptr()), ptr(g.data_ptr()),
-        ptr(out.data_ptr()), b, n, c, _DTYPE_CODES[theta.dtype],
-        theta.stride(0), theta.stride(1), phi.stride(0), phi.stride(1),
-        g.stride(0), g.stride(1), dev.index, ptr(stream))
-    if err != 0:
-        raise RuntimeError(
-            f"fused_dot_nonlocal: kernel launch failed with CUDA error {err} "
-            f"({lib.tpavi_error_string(err).decode()})")
+    dev = theta.device
+    if dev.type != "cuda" or phi.device != dev or g.device != dev:
+        raise ValueError(
+            f"fused_dot_nonlocal: operands on {theta.device}, {phi.device}, "
+            f"{g.device}; the kernel needs all three on one CUDA device")
+
+
+def stages(theta: torch.Tensor, phi: torch.Tensor, g: torch.Tensor
+           ) -> tuple[str, Callable[[], None], Callable[[], None],
+                      torch.Tensor]:
+    """The two launches of one call on CUDA operands, with the output they
+    fill: ``(order, stage1, stage2, out)``. Run stage1, then stage2."""
+    _check(theta, phi, g)
+    b, n, c = theta.shape
+    dt = theta.dtype
+    c_pad = c
+    if dt == torch.bfloat16 and not all(map(_tma_ready, (theta, phi, g))):
+        # rows TMA cannot address in place: one zero-padded copy each
+        c_pad = _round_up(c, _ROW_ALIGN[dt])
+        theta, phi, g = (torch.nn.functional.pad(t, (0, c_pad - c))
+                         for t in (theta, phi, g))
+    out = torch.empty((b, n, c_pad), dtype=dt, device=theta.device)
+    if reassociated(n, c):
+        ws = torch.empty((b, c_pad, _round_up(c_pad, _ROW_ALIGN[dt])),
+                         dtype=dt, device=theta.device)
+        stage1 = _gemm(phi, True, g, True, ws, c_pad, c_pad, n, 1.0)
+        stage2 = _gemm(theta, False, ws, True, out, n, c_pad, c_pad, n)
+        order = "theta(phi^T g)"
+    else:
+        ws = torch.empty((b, n, _round_up(n, _ROW_ALIGN[dt])), dtype=dt,
+                         device=theta.device)
+        stage1 = _gemm(theta, False, phi, False, ws, n, n, c_pad, 1.0)
+        stage2 = _gemm(ws, False, g, True, out, n, c_pad, n, n)
+        order = "(theta phi^T)g"
+    if c_pad != c:
+        out = out[..., :c]
+    return order, stage1, stage2, out
+
+
+def _launch(theta: torch.Tensor, phi: torch.Tensor,
+            g: torch.Tensor) -> torch.Tensor:
+    """Check the operands and launch both stages on the current stream."""
+    _, stage1, stage2, out = stages(theta, phi, g)
+    stage1()
+    stage2()
     fused_dot_nonlocal.launches += 1
     return out
 
@@ -126,7 +219,8 @@ def fused_dot_nonlocal(theta: torch.Tensor, phi: torch.Tensor,
     """y[b] = (θ[b]·φ[b]ᵀ / N)·g[b] for (B, N, C') operands, trainable.
 
     CPU tensors take :func:`fused_dot_nonlocal_plain`; CUDA tensors launch
-    the kernel (counted in ``fused_dot_nonlocal.launches``) or raise.
+    the kernel (counted once a call in ``fused_dot_nonlocal.launches``) or
+    raise.
     """
     return _FusedDotNonlocal.apply(theta, phi, g)
 

@@ -19,6 +19,7 @@ from glfusion_tpu.ops.tpavi_pallas import fused_dot_nonlocal as j_fused
 from glfusion_tpu_torch.ops import pooling, resize
 from glfusion_tpu_torch.ops.nonlocal_attn import dot_nonlocal_attention
 from glfusion_tpu_torch.ops.tpavi_fused import (fused_dot_nonlocal,
+                                                fused_dot_nonlocal_naive,
                                                 fused_dot_nonlocal_plain)
 
 
@@ -59,18 +60,34 @@ def test_dot_nonlocal_attention_matches_jax(impl, n, c):
     np.testing.assert_allclose(got.numpy(), ref, **TOL)
 
 
-@pytest.mark.parametrize("n", [75, 256])
-def test_fused_plain_matches_pallas_interpret(n):
+@pytest.mark.parametrize("n,c", [(75, 32), (256, 32), (24, 64)])
+def test_fused_plain_matches_pallas_interpret(n, c):
     """The kernel's plain version against the Pallas kernel in interpret
-    mode, including a token count that is not a multiple of any tile."""
+    mode, including a token count that is not a multiple of any tile and
+    (at N <= C') the kernel's other contraction order."""
     rs = np.random.RandomState(3)
-    t, p, g = (_rand(rs, 2, n, 32) for _ in range(3))
+    t, p, g = (_rand(rs, 2, n, c) for _ in range(3))
     ref = np.asarray(j_fused(*map(jnp.asarray, (t, p, g)), interpret=True))
     args = tuple(map(torch.from_numpy, (t, p, g)))
     np.testing.assert_allclose(fused_dot_nonlocal_plain(*args).numpy(), ref,
                                **TOL)
     # the wrapper takes the plain version for CPU tensors
     np.testing.assert_allclose(fused_dot_nonlocal(*args).numpy(), ref, **TOL)
+
+
+@pytest.mark.parametrize("n,c", [(75, 32), (24, 64)])
+def test_fused_plain_bf16_matches_float64_chain(n, c):
+    """bfloat16 through the plain version (the kernel's arithmetic) against
+    the naive chain in float64: within 1e-2 relative max, one bfloat16
+    rounding of the intermediate and one of the output (2^-9 each)."""
+    rs = np.random.RandomState(5)
+    t, p, g = (_rand(rs, 2, n, c) for _ in range(3))
+    args = [torch.from_numpy(a).to(torch.bfloat16) for a in (t, p, g)]
+    ref = fused_dot_nonlocal_naive(*(a.double() for a in args))
+    got = fused_dot_nonlocal_plain(*args)
+    assert got.dtype == torch.bfloat16
+    err = ((got.double() - ref).abs().max() / ref.abs().max()).item()
+    assert err <= 1e-2, err
 
 
 def test_fused_gradient_matches_jax():
@@ -94,5 +111,17 @@ def test_fused_wrapper_refuses_other_devices():
     """Only CPU tensors take the plain version; anything else must be a
     CUDA tensor the kernel launches on."""
     x = torch.empty(1, 4, 8, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_dot_nonlocal(x, x, x)
+
+
+def test_fused_wrapper_takes_wide_channels():
+    """C' > 1024 passes the shape checks (the kernel has no channel cap).
+    The device check comes last: a meta tensor with a bad shape fails at
+    the shape check, one of (2, 192, 1536) only at the device check."""
+    bad = torch.empty(2, 192, 1536, device="meta")
+    with pytest.raises(ValueError, match="shapes"):
+        fused_dot_nonlocal(bad, bad, bad[:1])
+    x = torch.empty(2, 192, 1536, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         fused_dot_nonlocal(x, x, x)
