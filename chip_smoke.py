@@ -12,21 +12,24 @@ nonzero:
           switched off for matmuls and cuDNN, for every comparison below.
   build   nvcc builds the port's CUDA kernels (``tpavi_fused.cu``,
           ``stem_fused.cu``) from the checkout's sources, in parallel.
-  kernel  the TPAVI kernel against its plain PyTorch version at small,
+  kernel  the TPAVI kernel against its plain PyTorch version (relative max
+          and norm error) at small,
           ragged, N <= C', C' > 1024 and serving shapes, float32 and
           bfloat16, on contiguous and on strided (split-projection)
           operands, with its contraction order, its time and each stage's,
           the plain version's, two cuBLAS yardsticks' and the card's bound;
-          at the serving shape in float32 also against the float64 naive
-          chain.
+          against the float64 naive chain at the serving shape in float32
+          and at both clip shapes in bfloat16.
   kernel_backward  the TPAVI kernel's autograd backward at the train
           shapes (8 and 40, 2352, 1024) against autograd of the plain
           version: dθ, dφ, dg.
-  stem    the four fused-stem kernels against the plain (cuDNN) stem at
+  stem    the five fused-stem kernels against the plain (cuDNN) stem at
           B = 8 and 40, 112², C = 64, float32 and bfloat16: pooled output,
-          batch mean and variance, all five gradients, eval output; a
-          per-view run with three views' own weights; each kernel's time,
-          bound and the plain composite's time.
+          batch mean and variance, all five gradients, eval output; the dx
+          reduce pass against its plain version; two runs of ``stem_bwd2``
+          with its reduce pass, and of the fused stem's backward, bitwise
+          equal; a per-view run with three views' own weights; each
+          kernel's time, bound and the plain version's time.
   serve   the full-width flagship (``Config().model`` with
           ``use_pallas_fusion=True``, random weights from seed 0) serves four
           NIfTI clips through ``ClipPipeline``; the masks and the kernel's
@@ -75,7 +78,15 @@ KERNEL_SHAPES = [  # (B, N, C'), dtypes
     ((40, 4800, 1024), ("float32", "bfloat16")),  # 160² clips
 ]
 KERNEL_TOL = {"float32": 2e-5, "bfloat16": 1e-2}  # max|y-ref| / max|ref|
-SERVE_SHAPE = (40, 2352, 1024)  # also held against the float64 naive chain
+# ‖y-ref‖ / ‖ref‖. In bfloat16 the max above is set by flips of the output's
+# own rounding; the norm tells a float32 intermediate (the hi/lo pair) from
+# one rounded to bfloat16 (both readings in PERF.md, K1 at every shape)
+KERNEL_NORM_TOL = {"float32": 2e-6, "bfloat16": 5e-4}
+SERVE_SHAPE = (40, 2352, 1024)
+# held against the float64 naive chain: the serving shape in float32, both
+# clip shapes in bfloat16 (where the intermediate's precision shows)
+NAIVE64 = {(SERVE_SHAPE, "float32"), ((40, 2352, 1024), "bfloat16"),
+           ((40, 4800, 1024), "bfloat16")}
 CLIPS = [("c0", 112, 40), ("c1", 112, 40), ("c2", 112, 27), ("c3", 160, 40)]
 # the TPAVI kernel's train shapes: the supervised pass (8 frames) and the
 # cycle pass (40-frame clips), 3 views of 28² tokens, C' = 1024
@@ -129,7 +140,8 @@ def check(cond: bool, msg: str) -> None:
 
 
 def kernel_error(torch, theta, phi, g):
-    """The kernel against its plain version: (max|y-ref|, that / max|ref|)."""
+    """The kernel against its plain version: (max|y-ref|, that / max|ref|,
+    ‖y-ref‖ / ‖ref‖)."""
     from glfusion_tpu_torch.ops.tpavi_fused import (fused_dot_nonlocal,
                                                     fused_dot_nonlocal_plain)
 
@@ -138,8 +150,10 @@ def kernel_error(torch, theta, phi, g):
     ref = fused_dot_nonlocal_plain(theta, phi, g).float()
     check(y.dtype == theta.dtype and y.shape == theta.shape,
           f"kernel output {y.dtype} {tuple(y.shape)}")
-    abs_err = (y.float() - ref).abs().max().item()
-    return abs_err, abs_err / ref.abs().max().item()
+    diff = y.float() - ref
+    abs_err = diff.abs().max().item()
+    return (abs_err, abs_err / ref.abs().max().item(),
+            (diff.norm() / ref.norm()).item())
 
 
 def naive64_error(torch, theta, phi, g) -> float:
@@ -155,37 +169,42 @@ def naive64_error(torch, theta, phi, g) -> float:
 
 def kernel_phase(torch):
     from glfusion_tpu_torch.ops import tpavi_fused
-    from glfusion_tpu_torch.ops.nonlocal_attn import dot_nonlocal_attention
     from glfusion_tpu_torch.ops.tpavi_fused import (fused_dot_nonlocal,
                                                     fused_dot_nonlocal_plain)
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     records = {}
+    failures = []  # every shape's line is printed before any check raises
     for (b, n, c), dtypes in KERNEL_SHAPES:
         for dt_name in dtypes:
             dt = getattr(torch, dt_name)
+            tol, norm_tol = KERNEL_TOL[dt_name], KERNEL_NORM_TOL[dt_name]
             theta, phi, g = (torch.randn(b, n, c, device="cuda",
                                          generator=gen).to(dt)
                              for _ in range(3))
-            abs_err, rel_err = kernel_error(torch, theta, phi, g)
-            check(math.isfinite(rel_err) and rel_err <= KERNEL_TOL[dt_name],
-                  f"kernel {(b, n, c)} {dt_name}: relative error {rel_err} "
-                  f"> {KERNEL_TOL[dt_name]}")
+            abs_err, rel_err, norm_err = kernel_error(torch, theta, phi, g)
             # the eval path's operands: strided views of one (B, N, 3C')
             # projection, passed with their row stride 3C'
             split = torch.randn(b, n, 3 * c, device="cuda",
                                 generator=gen).to(dt).split(c, dim=-1)
-            _, strided_rel_err = kernel_error(torch, *split)
-            check(strided_rel_err <= KERNEL_TOL[dt_name],
-                  f"kernel {(b, n, c)} {dt_name}, strided operands: relative "
-                  f"error {strided_rel_err} > {KERNEL_TOL[dt_name]}")
+            _, strided_rel_err, strided_norm_err = kernel_error(torch, *split)
             del split
             naive64 = None
-            if (b, n, c) == SERVE_SHAPE and dt_name == "float32":
+            if ((b, n, c), dt_name) in NAIVE64:
                 naive64 = naive64_error(torch, theta, phi, g)
-                check(naive64 <= KERNEL_TOL[dt_name],
-                      f"kernel {(b, n, c)} {dt_name} against the float64 "
-                      f"naive chain: relative error {naive64}")
+            where = f"kernel {(b, n, c)} {dt_name}"
+            for what, err, limit in (
+                    ("relative error", rel_err, tol),
+                    ("relative norm error", norm_err, norm_tol),
+                    ("strided operands: relative error", strided_rel_err,
+                     tol),
+                    ("strided operands: relative norm error",
+                     strided_norm_err, norm_tol),
+                    ("against the float64 naive chain: relative error",
+                     naive64, tol)):
+                if err is not None and not (math.isfinite(err)
+                                            and err <= limit):
+                    failures.append(f"{where}, {what} {err} > {limit}")
             reps = 10
             kernel_ms = time_ms(torch, lambda: fused_dot_nonlocal(
                 theta, phi, g), reps)
@@ -196,11 +215,13 @@ def kernel_phase(torch):
             plain_ms = time_ms(torch, lambda: fused_dot_nonlocal_plain(
                 theta, phi, g), reps)
             # cuBLAS in the input type, in both orders: yardsticks only, the
-            # port never calls them. The library's time is the faster.
+            # port never calls them. The library's time is the faster. (In
+            # bfloat16 cuBLAS rounds the intermediate, which the kernel
+            # keeps as a hi/lo pair.)
             bmm_ms = time_ms(torch, lambda: torch.bmm(
                 torch.bmm(theta, phi.transpose(1, 2)) / n, g), reps)
-            reassoc_ms = time_ms(torch, lambda: dot_nonlocal_attention(
-                theta, phi, g, impl="reassoc"), reps)
+            reassoc_ms = time_ms(torch, lambda: torch.bmm(
+                theta, torch.bmm(phi.transpose(1, 2), g)) / n, reps)
             # The function needs two products in the cheaper order:
             # 4·B·N·C'·min(N, C') FLOP (the naive order, 4·B·N²·C', is
             # printed beside it).
@@ -210,9 +231,10 @@ def kernel_phase(torch):
             rec = {
                 "shape": [b, n, c], "dtype": dt_name,
                 "rel_err": rel_err, "max_abs_err": abs_err,
-                "strided_rel_err": strided_rel_err,
+                "norm_err": norm_err, "strided_rel_err": strided_rel_err,
+                "strided_norm_err": strided_norm_err,
                 "naive64_rel_err": naive64,
-                "tol": KERNEL_TOL[dt_name], "order": order,
+                "tol": tol, "norm_tol": norm_tol, "order": order,
                 "kernel_ms": kernel_ms, "stage1_ms": stage1_ms,
                 "stage2_ms": stage2_ms,
                 "bound_ms": max(t_ops, t_bytes),
@@ -227,6 +249,7 @@ def kernel_phase(torch):
             emit("kernel", **rec)
             del theta, phi, g
             torch.cuda.empty_cache()
+    check(not failures, "; ".join(failures))
     return records
 
 
@@ -432,7 +455,8 @@ def _category(name: str) -> str:
     if any(k in low for k in ("ffma_gemm", "wgmma_gemm")):
         return "tpavi_kernel"
     if any(k in low for k in ("stats_kernel", "norm_pool_kernel",
-                              "bwd1_kernel", "bwd2_kernel")):
+                              "bwd1_kernel", "bwd2_kernel",
+                              "dx_reduce_kernel")):
         return "stem_kernels"
     if any(s in low for s in ("conv", "fprop", "dgrad", "wgrad", "implicit",
                               "winograd", "cudnn")):
@@ -576,12 +600,49 @@ def stem_check(torch, inputs, dy, tol) -> dict:
     return err
 
 
+def same_bits(torch, a, b) -> bool:
+    """Equal dtype, shape and bytes."""
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and torch.equal(a.contiguous().view(-1).view(torch.uint8),
+                            b.contiguous().view(-1).view(torch.uint8)))
+
+
+def stem_determinism(torch, inputs, dy, chan) -> dict:
+    """Two runs on the same inputs: ``stem_bwd2`` with its reduce pass (dx,
+    and dW, db summed over the blocks), and the fused stem's whole backward
+    (all five gradients). Each pair must have the same bits."""
+    from glfusion_tpu_torch.experiments.stem_fused import (
+        fused_stem_train, stem_bwd2, stem_dx_reduce)
+
+    x, w = inputs[0], inputs[1]
+    w49 = w.reshape(STEM_C, 49).contiguous()
+
+    def kernels():
+        dwp, dbp, dxp = stem_bwd2(x, w49, chan, dy)
+        return stem_dx_reduce(dxp, STEM_HW), dwp.sum((0, 1)), dbp.sum((0, 1))
+
+    def backward():
+        ins = [t.detach().clone().requires_grad_(True) for t in inputs]
+        return torch.autograd.grad(fused_stem_train(*ins)[0], ins, dy)
+
+    res = {}
+    for name, fn in (("stem_bwd2", kernels), ("fused_stem_backward",
+                                                backward)):
+        first, second = fn(), fn()
+        torch.cuda.synchronize()
+        res[name] = all(same_bits(torch, u, v)
+                        for u, v in zip(first, second))
+    check(all(res.values()), f"stem: two runs differ: {res}")
+    return res
+
+
 def stem_phase(torch) -> dict:
     import torch.nn.functional as F
 
     from glfusion_tpu_torch.experiments.stem_fused import (
-        _chan, batch_moments, fused_stem_eval_plain, fused_stem_train_plain,
-        geometry, stem_bwd1, stem_bwd2, stem_norm_pool, stem_stats)
+        _chan, batch_moments, dx_slab_rows, fused_stem_eval_plain,
+        fused_stem_train_plain, geometry, stem_bwd1, stem_bwd2,
+        stem_dx_reduce, stem_dx_reduce_plain, stem_norm_pool, stem_stats)
 
     gen = torch.Generator(device="cuda").manual_seed(3)
     records = {}
@@ -600,8 +661,19 @@ def stem_phase(torch) -> dict:
                 STEM_C, x.device, bias)))
             inv = torch.rsqrt(var + 1e-5)
             a = gamma * inv
+            chan = _chan(STEM_C, x.device, bias, a, beta, mean, inv)
+            part = stem_bwd1(x, w49, chan, dy)
+            n = b * hc * wc
             chan = _chan(STEM_C, x.device, bias, a, beta, mean, inv,
-                         torch.zeros_like(a), torch.zeros_like(a))
+                         part[0].sum((0, 1)) / n, part[1].sum((0, 1)) / n)
+            deterministic = stem_determinism(torch, inputs, dy, chan)
+            dxp = stem_bwd2(x, w49, chan, dy)[2]
+            dx = stem_dx_reduce(dxp, STEM_HW)
+            dx_plain = stem_dx_reduce_plain(dxp, STEM_HW)
+            torch.cuda.synchronize()
+            err["max_abs_dx_reduce"] = (dx - dx_plain).abs().max().item()
+            check(err["max_abs_dx_reduce"] == 0.0, "stem_dx_reduce: "
+                  f"{err['max_abs_dx_reduce']} from its plain version")
             ms = {
                 "stem_stats": time_ms(torch, lambda: stem_stats(x, w49, chan)),
                 "stem_norm_pool": time_ms(
@@ -610,6 +682,8 @@ def stem_phase(torch) -> dict:
                                                               dy)),
                 "stem_bwd2": time_ms(torch, lambda: stem_bwd2(x, w49, chan,
                                                               dy)),
+                "stem_dx_reduce": time_ms(
+                    torch, lambda: stem_dx_reduce(dxp, STEM_HW)),
             }
             ins_p = [t.detach().clone().requires_grad_(True) for t in inputs]
             out_p = fused_stem_train_plain(*ins_p)[0]
@@ -624,19 +698,27 @@ def stem_phase(torch) -> dict:
                 # the plain backward runs as one autograd graph: its time
                 # stands beside both backward kernels
                 "stem_bwd1": bwd_plain, "stem_bwd2": bwd_plain,
+                "stem_dx_reduce": time_ms(
+                    torch, lambda: stem_dx_reduce_plain(dxp, STEM_HW)),
             }
             conv = 2 * b * hc * wc * STEM_C * 49
             isz = x.element_size()
             x_bytes, out_bytes = b * STEM_HW * STEM_HW * isz, \
                 b * STEM_C * hp * wp * isz
             part = b * slabs * STEM_C * 4
+            dx_bytes = b * STEM_HW * STEM_HW * 4
+            # the partials the reduce pass reads: each slab's rows inside
+            # the image, for every channel chunk; one add each
+            partials = b * (STEM_C // 8) * STEM_HW * sum(
+                len(dx_slab_rows(s, STEM_HW)[1]) for s in range(slabs))
             work = {  # (FLOP, bytes) the function of each kernel needs
                 "stem_stats": (conv, x_bytes + 3 * part),
                 "stem_norm_pool": (conv, x_bytes + out_bytes),
                 "stem_bwd1": (conv, x_bytes + out_bytes + 2 * part),
                 # z (for x̂ and the routing), dW and dx: three conv products
-                "stem_bwd2": (3 * conv, x_bytes + out_bytes
-                              + b * STEM_HW * STEM_HW * 4 + part * 50),
+                "stem_bwd2": (3 * conv, x_bytes + out_bytes + dx_bytes
+                              + part * 50),
+                "stem_dx_reduce": (partials, 4 * partials + dx_bytes),
             }
             bound = {}
             for k, (flop, nbytes) in work.items():
@@ -645,13 +727,14 @@ def stem_phase(torch) -> dict:
                 bound[k] = (max(t_ops, t_bytes),
                             "operations" if t_ops >= t_bytes else "bytes")
             rec = {"batch": b, "dtype": dt_name, "hw": STEM_HW, "c": STEM_C,
-                   "err": err, "tol": STEM_TOL[dt_name], "ms": ms,
+                   "err": err, "tol": STEM_TOL[dt_name],
+                   "deterministic": deterministic, "ms": ms,
                    "plain_ms": plain_ms,
                    "bound_ms": {k: v[0] for k, v in bound.items()},
                    "bound_by": {k: v[1] for k, v in bound.items()}}
             records[(b, dt_name)] = rec
             emit("stem", **rec)
-            del inputs, dy, ins_p, out_p
+            del inputs, dy, ins_p, out_p, dxp, dx, dx_plain
             torch.cuda.empty_cache()
 
     # per view, each with its own weights, as the flagship runs it: three
@@ -676,24 +759,21 @@ def _tapwise_stem_class(torch):
 
     class TapwiseStem(nn.Sequential):
         """The plain IEKD stem with its conv summed tap by tap (49
-        multiply-adds, another order than cuDNN's; ``reverse`` sums the taps
-        last to first): a second plain path."""
+        multiply-adds, another order than cuDNN's): a second plain path."""
 
-        def __init__(self, c, reverse=False):
+        def __init__(self, c):
             super().__init__(nn.Conv2d(1, c, 7, padding=2),
                              nn.BatchNorm2d(c))
-            self.taps = [(i, j) for i in range(7) for j in range(7)]
-            if reverse:
-                self.taps.reverse()
 
         def forward(self, x):
             conv, bn = self[0], self[1]
             h, w = x.shape[2] - 2, x.shape[3] - 2
             xp = F.pad(x, (2, 2, 2, 2))
             z = conv.bias.view(1, -1, 1, 1).expand(x.shape[0], -1, h, w)
-            for i, j in self.taps:
-                z = torch.addcmul(z, conv.weight[:, 0, i, j].view(
-                    1, -1, 1, 1), xp[:, :, i:i + h, j:j + w])
+            for i in range(7):
+                for j in range(7):
+                    z = torch.addcmul(z, conv.weight[:, 0, i, j].view(
+                        1, -1, 1, 1), xp[:, :, i:i + h, j:j + w])
             return F.max_pool2d(F.relu(bn(z)), 3, 2, 1)
 
     return TapwiseStem
@@ -713,16 +793,14 @@ def step_agreement(torch, cfg, trainer, batch) -> dict:
     otherwise (measured: one such window in 1.3 M moves the stem's dx by
     8e-4 in relative norm), and train-mode BNs amplify it where a gradient
     is a small difference of large sums. The yardstick is the plain path's
-    own noise: the same step through two second plain paths, equal in real
+    own noise: the same step through a second plain path, equal in real
     arithmetic (the reassociated attention order and the stem's conv summed
-    tap by tap, first to last and last to first). Each tensor's relative
-    norm error against the plain path must stay within 10× the larger of
-    the two paths' own + 1e-3 (one such draw alone comes out far below the
-    other now and then, for a tensor or two in 642). Conv biases followed
+    tap by tap). Each tensor's relative norm error against the plain path
+    must stay within 10× the second path's own + 1e-3. Conv biases followed
     by a train-mode BN (the stem conv, TPAVI's W_z conv), whose gradients
     cancel to noise, are measured against their weight gradient's norm.
     ``worst_ratio`` is the largest error over its allowance (the check
-    fails above 1) under each second path alone and under the larger."""
+    fails above 1)."""
     from glfusion_tpu_torch.models import GlobalAndLocal
     from glfusion_tpu_torch.train.step import make_train_step
 
@@ -748,24 +826,23 @@ def step_agreement(torch, cfg, trainer, batch) -> dict:
 
     m_k, g_k = run(model_k, "pallas")
     runs = []
-    for reverse in (None, False, True):
+    for tapwise in (False, True):
         model = GlobalAndLocal(cfg.model).cuda()
         model.load_state_dict(state)
-        if reverse is not None:
+        if tapwise:
             for v, stem in list(model.init_block.items()):
-                tapwise = TapwiseStem(stem[0].out_channels, reverse).cuda()
-                tapwise.load_state_dict(stem.state_dict())
-                model.init_block[v] = tapwise
-        runs.append(run(model, "naive" if reverse is None else "reassoc"))
+                second = TapwiseStem(stem[0].out_channels).cuda()
+                second.load_state_dict(stem.state_dict())
+                model.init_block[v] = second
+        runs.append(run(model, "reassoc" if tapwise else "naive"))
         del model
     torch.cuda.empty_cache()
-    (m_p, g_p), *paths = runs
+    (m_p, g_p), (_, g_r) = runs
     loss_err = {k: abs(m_k[k] - m_p[k]) / max(abs(m_p[k]), 1e-12)
                 for k in ("loss", "seg_loss", "cyc_loss")}
     for k, e in loss_err.items():
         check(e <= STEP_TOL["loss"], f"step {k}: kernels vs plain {e}")
-    check(all(set(g) == set(g_p) for g in (g_k, *(g for _, g in paths))),
-          "gradient sets differ")
+    check(set(g_k) == set(g_p) == set(g_r), "gradient sets differ")
 
     def err(g, name):
         if name.endswith(".0.bias") and (name.startswith("init_block.")
@@ -775,13 +852,7 @@ def step_agreement(torch, cfg, trainer, batch) -> dict:
         return rel_norm(g[name], g_p[name])
 
     grad_err = {n: err(g_k, n) for n in g_p}
-    first, second = ({n: err(g, n) for n in g_p} for _, g in paths)
-    noise = {n: max(first[n], second[n]) for n in g_p}
-
-    def worst_ratio(nz):
-        return max(e / (10 * nz[n] + STEP_TOL["grad"])
-                   for n, e in grad_err.items())
-
+    noise = {n: err(g_r, n) for n in g_p}
     bad = [(n, grad_err[n], noise[n]) for n in g_p
            if not (math.isfinite(grad_err[n])
                    and grad_err[n] <= 10 * noise[n] + STEP_TOL["grad"])]
@@ -795,11 +866,9 @@ def step_agreement(torch, cfg, trainer, batch) -> dict:
             "grad_rel_err_max": worst[0][1],
             "grad_rel_err_worst": [(n, e, noise[n]) for n, e in worst],
             "plain_noise_max": max(noise.values()),
-            "worst_ratio": {"first": worst_ratio(first),
-                            "second": worst_ratio(second),
-                            "larger": worst_ratio(noise)},
-            "tol": "loss 1e-4; grad 10 x the larger of two second plain "
-                   "paths + 1e-3"}
+            "worst_ratio": max(e / (10 * noise[n] + STEP_TOL["grad"])
+                               for n, e in grad_err.items()),
+            "tol": "loss 1e-4; grad 10 x second plain path + 1e-3"}
 
 
 def train_phase(torch) -> dict:
@@ -890,7 +959,7 @@ def train_phase(torch) -> dict:
     check(val_counts["stem_norm_pool"] == views * forwards
           and val_counts["fused_dot_nonlocal"] == 2 * forwards
           and sum(val_counts[k] for k in ("stem_stats", "stem_bwd1",
-                                          "stem_bwd2")) == 0,
+                                          "stem_bwd2", "stem_dx_reduce")) == 0,
           f"validation launches {val_counts} for {forwards} forwards")
     dice = {s: {v: r["dice"] for v, r in results[s]["views"].items()}
             for s in results}
@@ -1005,13 +1074,16 @@ def main() -> None:
                           "experiments/stem_banded.py:192)",
         "stem_bwd1": "experiments/stem_pallas.py:325",
         "stem_bwd2": "experiments/stem_pallas.py:356",
+        # the second pass of K2d's function: dx summed in a fixed order
+        "stem_dx_reduce": "experiments/stem_pallas.py:356",
     }
     abs_err = {"stem_stats": stem["err"]["max_abs_stats"],
                "stem_norm_pool": stem["err"]["max_abs_out"],
                "stem_bwd1": max(stem["err"]["max_abs_dgamma"],
                                 stem["err"]["max_abs_dbeta"]),
                "stem_bwd2": max(stem["err"]["max_abs_dx"],
-                                stem["err"]["max_abs_dweight"])}
+                                stem["err"]["max_abs_dweight"]),
+               "stem_dx_reduce": stem["err"]["max_abs_dx_reduce"]}
     for name, where in replaces.items():
         kernels.append({
             "name": name, "route": "cuda",

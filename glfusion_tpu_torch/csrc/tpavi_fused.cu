@@ -14,8 +14,12 @@
 //
 // At N > C' the N x N similarity map is never formed, in memory or on the
 // chip. The intermediate (M or S) goes through a workspace the caller
-// allocates, in the input type: a bfloat16 call rounds it once to bfloat16
-// before the second product, which its plain version repeats. Accumulation
+// allocates. It keeps float32 precision, as the JAX package's products do
+// (`preferred_element_type=float32`; the Pallas kernel contracts a float32
+// similarity tile): float32 in a float32 call; in a bfloat16 call, where
+// wgmma takes bfloat16 operands, a hi/lo pair, M_hi = bf16(M) and
+// M_lo = bf16(M - M_hi), which carries 16 of float32's 24 significand bits
+// (relative error about 2^-17, against 2^-9 for M_hi alone). Accumulation
 // is float32 throughout; the division is by the TRUE token count N; the
 // output has the input's type.
 //
@@ -47,6 +51,16 @@
 //    edges); the M- and N-major operands use wgmma's transpose bits. The
 //    tensor maps are encoded on the host by cuTensorMapEncodeTiled, reached
 //    through cudaGetDriverEntryPoint (no link against libcuda).
+//    The hi/lo intermediate: stage 1's epilogue writes both halves from its
+//    float32 accumulators into a (B, 2, rows, ld) workspace. Stage 2 runs
+//    two accumulating passes over K into the same accumulators, the first
+//    over the hi half, the second over the lo half, re-reading the other
+//    operand's K-slices: the workspace is read through one tensor map as a
+//    (2B, rows, ld) tensor, batch coordinate 2b + pass. Two passes rather
+//    than one K loop of 2C' over [M_hi; M_lo]: K-slices of 64 would straddle
+//    the hi/lo seam wherever C' is not a multiple of 64, and the pass index
+//    costs the producer one batch coordinate. Stage 2 does twice the
+//    tensor-core work; it stays bound by operations.
 //
 // Batch and output tile share one linear tile index, so the batch is not
 // limited by gridDim.y; C' has no cap.
@@ -404,8 +418,8 @@ __global__ void __launch_bounds__(THREADS, 1)
 wgmma_gemm(const __grid_constant__ CUtensorMap map_a,
            const __grid_constant__ CUtensorMap map_b,
            __nv_bfloat16* __restrict__ c, long long c_sb, long long c_ld,
-           int m, int n, int k, int tiles_m, int tiles_n, long long tiles,
-           float div) {
+           long long c_lo, int split, int m, int n, int k, int tiles_m,
+           int tiles_n, long long tiles, float div) {
   extern __shared__ __align__(1024) uint8_t tc_smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(tc_smem_raw) + SWIZZLE_ATOM - 1) &
@@ -418,6 +432,8 @@ wgmma_gemm(const __grid_constant__ CUtensorMap map_a,
 
   const int tid = threadIdx.x;
   const int ktiles = (k + BK - 1) / BK;
+  // split = 1 (2) : A (B) is a hi/lo pair, a second pass over K reads lo
+  const int kslices = split ? 2 * ktiles : ktiles;
   // tile t: column tile fastest, then row tile, then batch element
   auto origin = [&](long long t, int& m0, int& n0, int& bi) {
     n0 = static_cast<int>(t % tiles_n) * BN;
@@ -444,23 +460,26 @@ wgmma_gemm(const __grid_constant__ CUtensorMap map_a,
     for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
       int m0, n0, bi;
       origin(t, m0, n0, bi);
-      for (int kt = 0; kt < ktiles; ++kt, ++it) {
-        const int s = it % STAGES, k0 = kt * BK;
+      for (int kt = 0; kt < kslices; ++kt, ++it) {
+        const int s = it % STAGES, k0 = (kt % ktiles) * BK;
+        const int pass = kt / ktiles;
+        const int ba = split == 1 ? 2 * bi + pass : bi;
+        const int bb = split == 2 ? 2 * bi + pass : bi;
         if (it >= STAGES) mbar_wait(&empty[s], (it / STAGES - 1) & 1);
         mbar_expect_tx(&full[s], SLICE_A + SLICE_B);
         uint8_t* a_dst = sa + s * SLICE_A;
         uint8_t* b_dst = sb + s * SLICE_B;
         if constexpr (A_MN) {
-          tma_load(a_dst, &map_a, m0, k0, bi, &full[s]);
-          tma_load(a_dst + BOX, &map_a, m0 + 64, k0, bi, &full[s]);
+          tma_load(a_dst, &map_a, m0, k0, ba, &full[s]);
+          tma_load(a_dst + BOX, &map_a, m0 + 64, k0, ba, &full[s]);
         } else {
-          tma_load(a_dst, &map_a, k0, m0, bi, &full[s]);
+          tma_load(a_dst, &map_a, k0, m0, ba, &full[s]);
         }
         if constexpr (B_MN) {
           for (int h = 0; h < BN / 64; ++h)
-            tma_load(b_dst + h * BOX, &map_b, n0 + 64 * h, k0, bi, &full[s]);
+            tma_load(b_dst + h * BOX, &map_b, n0 + 64 * h, k0, bb, &full[s]);
         } else {
-          tma_load(b_dst, &map_b, k0, n0, bi, &full[s]);
+          tma_load(b_dst, &map_b, k0, n0, bb, &full[s]);
         }
       }
     }
@@ -479,7 +498,7 @@ wgmma_gemm(const __grid_constant__ CUtensorMap map_a,
     origin(t, m0, n0, bi);
 #pragma unroll
     for (int i = 0; i < 128; ++i) d[i] = 0.f;
-    for (int kt = 0; kt < ktiles; ++kt, ++it) {
+    for (int kt = 0; kt < kslices; ++kt, ++it) {
       const int s = it % STAGES;
       mbar_wait(&full[s], (it / STAGES) & 1);
       const uint32_t a_base = smem_addr(sa + s * SLICE_A) + wg * BOX;
@@ -504,7 +523,8 @@ wgmma_gemm(const __grid_constant__ CUtensorMap map_a,
     mbar_arrive(&empty[(it - 1) % STAGES]);  // the tile's last slice
 
     // accumulator layout: warp q of the warpgroup holds rows 16q..16q+15;
-    // d[4j + 2h + e] is row lane/4 + 8h, column 8j + 2(lane % 4) + e
+    // d[4j + 2h + e] is row lane/4 + 8h, column 8j + 2(lane % 4) + e.
+    // c_lo > 0: also the residual's rounding, c_lo elements further on
     const int row_base = m0 + 64 * wg + 16 * q + lane / 4;
     __nv_bfloat16* c_b = c + static_cast<long long>(bi) * c_sb;
 #pragma unroll
@@ -517,12 +537,19 @@ wgmma_gemm(const __grid_constant__ CUtensorMap map_a,
         __nv_bfloat16* dst = c_b + static_cast<long long>(row) * c_ld + col;
         const float v0 = d[4 * j + 2 * h] * inv;
         const float v1 = d[4 * j + 2 * h + 1] * inv;
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(v0, v1);
+        const __nv_bfloat162 lo = __floats2bfloat162_rn(
+            v0 - __low2float(hi), v1 - __high2float(hi));
         if (pairs && col + 1 < n) {
-          *reinterpret_cast<__nv_bfloat162*>(dst) =
-              __floats2bfloat162_rn(v0, v1);
+          *reinterpret_cast<__nv_bfloat162*>(dst) = hi;
+          if (c_lo) *reinterpret_cast<__nv_bfloat162*>(dst + c_lo) = lo;
         } else {
-          dst[0] = __float2bfloat16(v0);
-          if (col + 1 < n) dst[1] = __float2bfloat16(v1);
+          dst[0] = hi.x;
+          if (c_lo) dst[c_lo] = lo.x;
+          if (col + 1 < n) {
+            dst[1] = hi.y;
+            if (c_lo) dst[c_lo + 1] = lo.y;
+          }
         }
       }
     }
@@ -606,20 +633,23 @@ template <bool A_MN, bool B_MN>
 cudaError_t launch_wgmma(const void* a, long long a_sb, long long a_ld,
                          const void* b, long long b_sb, long long b_ld,
                          __nv_bfloat16* c, long long c_sb, long long c_ld,
-                         int batch, int m, int n, int k, int tiles_m,
-                         int tiles_n, long long blocks, float div,
-                         cudaStream_t s) {
+                         long long c_lo, int split, int batch, int m, int n,
+                         int k, int tiles_m, int tiles_n, long long blocks,
+                         float div, cudaStream_t s) {
   // TMA needs 16-byte aligned bases and strides
   if (!aligned16(a) || !aligned16(b) || a_ld % 8 || a_sb % 8 || b_ld % 8 ||
       b_sb % 8)
     return cudaErrorMisalignedAddress;
+  // a hi/lo operand is (2 batch, rows, ld), a_sb / b_sb apart
+  const int batch_a = split == 1 ? 2 * batch : batch;
+  const int batch_b = split == 2 ? 2 * batch : batch;
   CUtensorMap map_a, map_b;
   cudaError_t err =
-      A_MN ? make_map(&map_a, a, m, k, batch, a_ld, a_sb, 64, tc::BK)
-           : make_map(&map_a, a, k, m, batch, a_ld, a_sb, tc::BK, tc::BM);
+      A_MN ? make_map(&map_a, a, m, k, batch_a, a_ld, a_sb, 64, tc::BK)
+           : make_map(&map_a, a, k, m, batch_a, a_ld, a_sb, tc::BK, tc::BM);
   if (err != cudaSuccess) return err;
-  err = B_MN ? make_map(&map_b, b, n, k, batch, b_ld, b_sb, 64, tc::BK)
-             : make_map(&map_b, b, k, n, batch, b_ld, b_sb, tc::BK, tc::BN);
+  err = B_MN ? make_map(&map_b, b, n, k, batch_b, b_ld, b_sb, 64, tc::BK)
+             : make_map(&map_b, b, k, n, batch_b, b_ld, b_sb, tc::BK, tc::BN);
   if (err != cudaSuccess) return err;
   auto kern = &tc::wgmma_gemm<A_MN, B_MN>;
   err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -635,7 +665,8 @@ cudaError_t launch_wgmma(const void* a, long long a_sb, long long a_ld,
   }
   const long long grid = blocks < sms ? blocks : sms;
   kern<<<static_cast<unsigned>(grid), tc::THREADS, tc::SMEM_BYTES, s>>>(
-      map_a, map_b, c, c_sb, c_ld, m, n, k, tiles_m, tiles_n, blocks, div);
+      map_a, map_b, c, c_sb, c_ld, c_lo, split, m, n, k, tiles_m, tiles_n,
+      blocks, div);
   return cudaGetLastError();
 }
 
@@ -649,12 +680,17 @@ extern "C" {
 // a_mn = 1: A[i][l] lies at a[l·a_ld + i] (M-major), else at a[i·a_ld + l];
 // b_mn = 1: B[l][j] lies at b[l·b_ld + j] (N-major), else at b[j·b_ld + l].
 // Strides are in elements; *_sb is the batch stride. The combination
-// (a_mn = 1, b_mn = 0) is not built. Returns a cudaError_t (0 on success).
+// (a_mn = 1, b_mn = 0) is not built. bfloat16 only: c_lo > 0 also writes
+// bf16(C - bf16(C)) c_lo elements after each output; split = 1 (2) reads A
+// (B) as hi/lo pairs, batch element b's halves at 2b and 2b + 1, *_sb apart,
+// and sums both products. Returns a cudaError_t (0 on success).
 int tpavi_gemm(int dtype, int a_mn, int b_mn, const void* a, long long a_sb,
                long long a_ld, const void* b, long long b_sb, long long b_ld,
-               void* c, long long c_sb, long long c_ld, int batch, int m,
-               int n, int k, float div, int device, void* stream) {
-  if (batch <= 0 || m <= 0 || n <= 0 || k <= 0 || (a_mn && !b_mn))
+               void* c, long long c_sb, long long c_ld, long long c_lo,
+               int split, int batch, int m, int n, int k, float div,
+               int device, void* stream) {
+  if (batch <= 0 || m <= 0 || n <= 0 || k <= 0 || (a_mn && !b_mn) ||
+      c_lo < 0 || split < 0 || split > 2 || (dtype != 1 && (c_lo || split)))
     return static_cast<int>(cudaErrorInvalidValue);
   const int bn = dtype == 1 ? tc::BN : ff::BN;  // both engines: BM = 128
   const int tiles_m = (m + 127) / 128, tiles_n = (n + bn - 1) / bn;
@@ -683,16 +719,16 @@ int tpavi_gemm(int dtype, int a_mn, int b_mn, const void* a, long long a_sb,
     __nv_bfloat16* bc = static_cast<__nv_bfloat16*>(c);
     if (a_mn)
       err = launch_wgmma<true, true>(a, a_sb, a_ld, b, b_sb, b_ld, bc, c_sb,
-                                     c_ld, batch, m, n, k, tiles_m, tiles_n,
-                                     blocks, div, s);
+                                     c_ld, c_lo, split, batch, m, n, k,
+                                     tiles_m, tiles_n, blocks, div, s);
     else if (b_mn)
       err = launch_wgmma<false, true>(a, a_sb, a_ld, b, b_sb, b_ld, bc, c_sb,
-                                      c_ld, batch, m, n, k, tiles_m, tiles_n,
-                                      blocks, div, s);
+                                      c_ld, c_lo, split, batch, m, n, k,
+                                      tiles_m, tiles_n, blocks, div, s);
     else
       err = launch_wgmma<false, false>(a, a_sb, a_ld, b, b_sb, b_ld, bc, c_sb,
-                                       c_ld, batch, m, n, k, tiles_m, tiles_n,
-                                       blocks, div, s);
+                                       c_ld, c_lo, split, batch, m, n, k,
+                                       tiles_m, tiles_n, blocks, div, s);
   } else {
     err = cudaErrorInvalidValue;
   }

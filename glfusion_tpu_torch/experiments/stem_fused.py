@@ -1,5 +1,5 @@
 """Fused IEKD stem: 7×7 s1 p2 conv (+bias) → BatchNorm → ReLU → 3×3 s2 p1
-maxpool, forward and backward, in four hand-written CUDA kernels.
+maxpool, forward and backward, in five hand-written CUDA kernels.
 
 The port of ``experiments/stem_pallas.py`` (and, for the forward, of
 ``experiments/stem_banded.py``, whose kernels compute the same functions).
@@ -13,8 +13,11 @@ The kernels are ``glfusion_tpu_torch/csrc/stem_fused.cu``:
   statistics in eval;
 * ``stem_bwd1``: Σdn and Σdn·x̂ per channel (dn = dy routed to each pool
   window's first maximum and gated by the ReLU), which give dβ and dγ;
-* ``stem_bwd2``: dz = a·dn − a·(E[dn] + x̂·E[dn·x̂]), then dW and db partials
-  and dx.
+* ``stem_bwd2``: dz = a·dn − a·(E[dn] + x̂·E[dn·x̂]), then dW, db and dx
+  partials per block;
+* ``stem_dx_reduce``: dx from ``stem_bwd2``'s partials, each pixel summed
+  slab ascending, then chunk ascending, so dx has the same bits on every
+  run (no atomics).
 
 Layout. The JAX functions take NHWC; these take the model's NCHW: x
 (B, 1, H, W), weight (C, 1, 7, 7) as ``nn.Conv2d`` holds it, output
@@ -26,7 +29,8 @@ x and the output are float32 or bfloat16; weights, statistics and all
 accumulation are float32, as in the Pallas kernel. ``fused_stem_train`` and
 ``fused_stem_eval`` take the plain versions for tensors on the CPU; for CUDA
 tensors they launch the kernels (each launcher counts its launches in
-``.launches``) or raise.
+``.launches``) or raise. Every kernel sums in a fixed order: two calls on
+the same inputs give the same bits.
 """
 
 from __future__ import annotations
@@ -41,6 +45,8 @@ from glfusion_tpu_torch.ops import _build
 
 EPS = 1e-5
 CHANNEL_CHUNK = 8  # channels per kernel block; C must be a multiple
+POOL_ROWS = 4      # pooled rows per kernel block (a slab)
+DX_ROWS = 2 * POOL_ROWS + 6  # input rows of one block's dx partial
 _SOURCE = "stem_fused"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -90,11 +96,21 @@ def _library() -> ctypes.CDLL:
     lib.stem_norm_pool.argtypes = [p, p, p, p] + geom
     lib.stem_bwd1.argtypes = [p, p, p, p, p] + geom
     lib.stem_bwd2.argtypes = [p, p, p, p, p, p, p] + geom
+    lib.stem_dx_reduce.argtypes = [p, p, i, i, i, i, i, p]
     for fn in (lib.stem_stats, lib.stem_norm_pool, lib.stem_bwd1,
-               lib.stem_bwd2):
+               lib.stem_bwd2, lib.stem_dx_reduce):
         fn.restype = i
     lib.stem_error_string.argtypes = [i]
     lib.stem_error_string.restype = ctypes.c_char_p
+    layout = [ctypes.c_int() for _ in range(3)]
+    lib.stem_layout.argtypes = [ctypes.POINTER(ctypes.c_int)] * 3
+    lib.stem_layout.restype = None
+    lib.stem_layout(*(ctypes.byref(v) for v in layout))
+    ours = (POOL_ROWS, CHANNEL_CHUNK, DX_ROWS)
+    if tuple(v.value for v in layout) != ours:
+        raise RuntimeError(
+            f"{_SOURCE}: the library's (R, CC, DXR) = "
+            f"{tuple(v.value for v in layout)}, the wrappers' {ours}")
     return lib
 
 
@@ -103,7 +119,17 @@ def geometry(h: int, w: int) -> tuple[int, int, int, int, int]:
     blocks along the pooled rows (4 pooled rows each)."""
     hc, wc = h - 2, w - 2
     hp, wp = (hc - 1) // 2 + 1, (wc - 1) // 2 + 1
-    return hc, wc, hp, wp, -(-hp // 4)
+    return hc, wc, hp, wp, -(-hp // POOL_ROWS)
+
+
+def dx_slab_rows(slab: int, h: int) -> tuple[int, range]:
+    """Where slab ``slab``'s dx partial lies: (the input row of its row 0,
+    the image rows it covers). Its own conv rows [2·4·slab, 2·4·slab + 8)
+    reach input rows 2 above to 4 below through the 7×7 p2 conv, so
+    neighbouring slabs overlap by 6 rows; rows outside the image are not
+    written."""
+    first = 2 * POOL_ROWS * slab - 2
+    return first, range(max(first, 0), min(first + DX_ROWS, h))
 
 
 def _check(x: torch.Tensor, weight: torch.Tensor) -> None:
@@ -179,22 +205,68 @@ def stem_bwd1(x, w49, chan, dy) -> torch.Tensor:
 
 def stem_bwd2(x, w49, chan, dy):
     """K2d: dW partials (B, slabs, C, 49), db partials (B, slabs, C) and dx
-    (B, H, W) float32."""
+    partials (B, slabs, C / 8, 14, W) float32 (see :func:`dx_slab_rows`;
+    rows outside the image are left unwritten), which
+    :func:`stem_dx_reduce` sums."""
     b, _, h, w = x.shape
     c = w49.shape[0]
     slabs = geometry(h, w)[4]
     dwp = torch.empty((b, slabs, c, 49), device=x.device)
     dbp = torch.empty((b, slabs, c), device=x.device)
-    dx = torch.zeros((b, h, w), device=x.device)
+    dxp = torch.empty((b, slabs, c // CHANNEL_CHUNK, DX_ROWS, w),
+                      device=x.device)
     _call(_library().stem_bwd2, "stem_bwd2",
-          (x, w49, chan, dy, dwp, dbp, dx), x, c)
+          (x, w49, chan, dy, dwp, dbp, dxp), x, c)
     stem_bwd2.launches += 1
-    return dwp, dbp, dx
+    return dwp, dbp, dxp
 
 
-for _fn in (stem_stats, stem_norm_pool, stem_bwd1, stem_bwd2):
+def stem_dx_reduce_plain(dxp: torch.Tensor, h: int) -> torch.Tensor:
+    """The reduce pass in plain PyTorch, in the kernel's order (slab
+    ascending, then chunk ascending, from 0): (B, H, W) float32."""
+    b, slabs, chunks, _, w = dxp.shape
+    dx = dxp.new_zeros((b, h, w))
+    for s in range(slabs):
+        first, rows = dx_slab_rows(s, h)
+        part = dxp[:, s, :, rows.start - first:rows.stop - first]
+        for ch in range(chunks):
+            dx[:, rows.start:rows.stop] += part[:, ch]
+    return dx
+
+
+def stem_dx_reduce(dxp: torch.Tensor, h: int) -> torch.Tensor:
+    """K2d's second pass: dx (B, H, W) float32 from ``stem_bwd2``'s
+    partials, each pixel summed slab ascending, then chunk ascending. A
+    CPU tensor takes :func:`stem_dx_reduce_plain`."""
+    b, slabs, chunks, rows, w = dxp.shape
+    if (slabs, rows) != (geometry(h, w)[4], DX_ROWS):
+        raise ValueError(f"stem_dx_reduce: partials {tuple(dxp.shape)} for "
+                         f"H = {h}; need (B, {geometry(h, w)[4]}, C / "
+                         f"{CHANNEL_CHUNK}, {DX_ROWS}, W)")
+    if dxp.device.type == "cpu":
+        return stem_dx_reduce_plain(dxp, h)
+    if dxp.device.type != "cuda" or dxp.dtype != torch.float32 or \
+            not dxp.is_contiguous():
+        raise ValueError(f"stem_dx_reduce: partials {dxp.dtype} on "
+                         f"{dxp.device}; the kernel takes contiguous float32 "
+                         "on a CUDA device")
+    dx = torch.empty((b, h, w), device=dxp.device)
+    stream = torch.cuda.current_stream(dxp.device).cuda_stream
+    err = _library().stem_dx_reduce(
+        ctypes.c_void_p(dxp.data_ptr()), ctypes.c_void_p(dx.data_ptr()), b,
+        h, w, chunks * CHANNEL_CHUNK, dxp.device.index,
+        ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(
+            f"stem_dx_reduce: kernel launch failed with CUDA error {err} "
+            f"({_library().stem_error_string(err).decode()})")
+    stem_dx_reduce.launches += 1
+    return dx
+
+
+KERNELS = (stem_stats, stem_norm_pool, stem_bwd1, stem_bwd2, stem_dx_reduce)
+for _fn in KERNELS:
     _fn.launches = 0
-KERNELS = (stem_stats, stem_norm_pool, stem_bwd1, stem_bwd2)
 
 
 def batch_moments(part: torch.Tensor):
@@ -240,7 +312,8 @@ class _FusedStemTrain(torch.autograd.Function):
         n = b * hc * wc
         chan = _chan(c, x.device, bias, a, beta, mean, inv, dbeta / n,
                      dgamma / n)
-        dwp, dbp, dx = stem_bwd2(x, w49, chan, dy)
+        dwp, dbp, dxp = stem_bwd2(x, w49, chan, dy)
+        dx = stem_dx_reduce(dxp, h)
         dweight = dwp.sum((0, 1)).reshape(c, 1, 7, 7)
         return (dx.to(x.dtype).unsqueeze(1), dweight, dbp.sum((0, 1)),
                 dgamma.to(gamma.dtype), dbeta)

@@ -81,7 +81,9 @@ class TPAVI(nn.Module):
             y = dot_nonlocal_attention(theta, phi, g, impl=self.attn_impl)
 
         conv, bn = self.W_z
-        wy = _linear(conv, y).reshape(b * n, c)
+        # the plain orders return float32; the projection takes the
+        # activations' type, as JAX's nn.Dense(dtype=...) casts its input
+        wy = _linear(conv, y.to(tokens.dtype)).reshape(b * n, c)
         if self.training and bn.num_batches_tracked is not None:
             bn.num_batches_tracked.add_(1)
         # BatchNorm3d over (B, C, V, H, W) normalizes each channel over

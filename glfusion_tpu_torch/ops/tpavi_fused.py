@@ -6,9 +6,12 @@ TPU kernel's function in the cheaper contraction order, as two launches of
 one batched-GEMM engine (FFMA register tiles for float32, wgmma fed by TMA
 for bfloat16). At N > C' it forms M = φᵀg (C' × C') and then θM/N, so the
 N×N map never exists; at N <= C' it forms S = θφᵀ (N × N) and then Sg/N.
-The intermediate is kept in the input type, float32 accumulation, float32
-or bfloat16 in and out. The backward is the three reassociated products of
-the JAX custom VJP, which are plain products there too.
+The intermediate keeps float32 precision, as in the JAX package: float32
+in a float32 call, a bfloat16 hi/lo pair (M_hi = bf16(M),
+M_lo = bf16(M − M_hi)) in a bfloat16 call, whose two halves stage 2
+contracts into one float32 sum. Accumulation is float32; operands and
+output are float32 or bfloat16. The backward is the three reassociated
+products of the JAX custom VJP, which are plain products there too.
 
 ``fused_dot_nonlocal`` takes the plain version only for tensors on the
 CPU; for CUDA tensors it launches the kernel or raises.
@@ -50,16 +53,16 @@ def fused_dot_nonlocal_naive(theta: torch.Tensor, phi: torch.Tensor,
 def fused_dot_nonlocal_plain(theta: torch.Tensor, phi: torch.Tensor,
                              g: torch.Tensor) -> torch.Tensor:
     """The kernel's arithmetic in plain PyTorch: the same order, float32
-    products, the intermediate rounded once to the input type."""
+    products and a float32 intermediate; the only rounding to the input
+    type is the output's. (The bfloat16 kernel's hi/lo intermediate differs
+    from float32 by about 2⁻¹⁷ relative.)"""
     n, c = theta.shape[-2:]
     f32 = torch.float32
     t, p, gg = (x.to(f32) for x in (theta, phi, g))
     if reassociated(n, c):
-        m = torch.bmm(p.transpose(1, 2), gg).to(theta.dtype).to(f32)
-        y = torch.bmm(t, m)
+        y = torch.bmm(t, torch.bmm(p.transpose(1, 2), gg))
     else:
-        s = torch.bmm(t, p.transpose(1, 2)).to(theta.dtype).to(f32)
-        y = torch.bmm(s, gg)
+        y = torch.bmm(torch.bmm(t, p.transpose(1, 2)), gg)
     return (y / n).to(theta.dtype)
 
 
@@ -69,7 +72,7 @@ def _library() -> ctypes.CDLL:
     lib = _build.load(_SOURCE)
     p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.tpavi_gemm.argtypes = [
-        i, i, i, p, ll, ll, p, ll, ll, p, ll, ll, i, i, i, i,
+        i, i, i, p, ll, ll, p, ll, ll, p, ll, ll, ll, i, i, i, i, i,
         ctypes.c_float, i, p]
     lib.tpavi_gemm.restype = i
     lib.tpavi_error_string.argtypes = [i]
@@ -95,11 +98,13 @@ def _tma_ready(t: torch.Tensor) -> bool:
 
 
 def _gemm(a: torch.Tensor, a_mn: bool, b: torch.Tensor, b_mn: bool,
-          c: torch.Tensor, m: int, n: int, k: int,
-          div: float) -> Callable[[], None]:
+          c: torch.Tensor, m: int, n: int, k: int, div: float,
+          c_lo: int = 0, split: int = 0) -> Callable[[], None]:
     """One launch of the engine, C = A·B / div, as a closure. A is (B, K, M)
     in memory if ``a_mn``, else (B, M, K); B is (B, K, N) if ``b_mn``, else
-    (B, N, K); C is (B, M, ≥N)."""
+    (B, N, K); C is (B, M, ≥N). bfloat16 only: ``c_lo`` > 0 also writes
+    bf16(C − bf16(C)) ``c_lo`` elements after each output; ``split`` = 1
+    (2) takes A (B) as (2B, ...) hi/lo pairs and sums both products."""
     lib = _library()
     dev = c.device
 
@@ -108,7 +113,8 @@ def _gemm(a: torch.Tensor, a_mn: bool, b: torch.Tensor, b_mn: bool,
         err = lib.tpavi_gemm(
             _DTYPE_CODES[c.dtype], int(a_mn), int(b_mn), a.data_ptr(),
             *_strides(a), b.data_ptr(), *_strides(b), c.data_ptr(),
-            *_strides(c), c.shape[0], m, n, k, float(div), dev.index, stream)
+            *_strides(c), c_lo, split, c.shape[0], m, n, k, float(div),
+            dev.index, stream)
         if err != 0:
             raise RuntimeError(
                 f"fused_dot_nonlocal: kernel launch failed with CUDA error "
@@ -160,17 +166,25 @@ def stages(theta: torch.Tensor, phi: torch.Tensor, g: torch.Tensor
         theta, phi, g = (torch.nn.functional.pad(t, (0, c_pad - c))
                          for t in (theta, phi, g))
     out = torch.empty((b, n, c_pad), dtype=dt, device=theta.device)
+    # the intermediate's workspace: (B, rows, ld) in float32; in bfloat16
+    # (B, 2, rows, ld), the hi and lo halves, read by stage 2 as (2B, ...)
+    rows = c_pad if reassociated(n, c) else n
+    halves = 2 if dt == torch.bfloat16 else 1
+    ws = torch.empty((b, halves, rows, _round_up(rows, _ROW_ALIGN[dt])),
+                     dtype=dt, device=theta.device)
+    c_lo = ws[0, 0].numel() if halves == 2 else 0
+    split_ws = ws.view(b * halves, *ws.shape[2:])
     if reassociated(n, c):
-        ws = torch.empty((b, c_pad, _round_up(c_pad, _ROW_ALIGN[dt])),
-                         dtype=dt, device=theta.device)
-        stage1 = _gemm(phi, True, g, True, ws, c_pad, c_pad, n, 1.0)
-        stage2 = _gemm(theta, False, ws, True, out, n, c_pad, c_pad, n)
+        stage1 = _gemm(phi, True, g, True, ws[:, 0], c_pad, c_pad, n, 1.0,
+                       c_lo=c_lo)
+        stage2 = _gemm(theta, False, split_ws, True, out, n, c_pad, c_pad, n,
+                       split=2 if c_lo else 0)
         order = "theta(phi^T g)"
     else:
-        ws = torch.empty((b, n, _round_up(n, _ROW_ALIGN[dt])), dtype=dt,
-                         device=theta.device)
-        stage1 = _gemm(theta, False, phi, False, ws, n, n, c_pad, 1.0)
-        stage2 = _gemm(ws, False, g, True, out, n, c_pad, n, n)
+        stage1 = _gemm(theta, False, phi, False, ws[:, 0], n, n, c_pad, 1.0,
+                       c_lo=c_lo)
+        stage2 = _gemm(split_ws, False, g, True, out, n, c_pad, n, n,
+                       split=1 if c_lo else 0)
         order = "(theta phi^T)g"
     if c_pad != c:
         out = out[..., :c]

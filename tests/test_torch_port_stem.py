@@ -31,9 +31,11 @@ from glfusion_tpu.models.resnet import IEKDStem
 from glfusion_tpu_torch.config import ModelConfig
 from glfusion_tpu_torch.experiments import stem_fused
 from glfusion_tpu_torch.experiments.stem_fused import (batch_moments,
+                                                       dx_slab_rows,
                                                        fused_stem_eval,
                                                        fused_stem_train,
-                                                       geometry)
+                                                       geometry,
+                                                       stem_dx_reduce)
 from glfusion_tpu_torch.experiments.stem_module import (FusedIEKDStem,
                                                         swap_in_fused_stems)
 from glfusion_tpu_torch.models import GlobalAndLocal
@@ -236,11 +238,11 @@ def test_batch_moments_merge_blocks():
 
 def test_geometry_and_launchers():
     """Pooled sizes follow MaxPool2d(3, 2, 1) on the 7×7 p2 conv map; the
-    kernels' four launchers start with a zero count; a tensor that is not
+    kernels' five launchers start with a zero count; a tensor that is not
     on the CPU never takes the plain version."""
     assert geometry(112, 112) == (110, 110, 55, 55, 14)
     assert geometry(21, 19)[:4] == (19, 17, 10, 9)
-    assert [f.launches for f in stem_fused.KERNELS] == [0, 0, 0, 0]
+    assert [f.launches for f in stem_fused.KERNELS] == [0] * 5
     x = torch.zeros(2, 1, 16, 16, device="meta")
     w = torch.zeros(8, 1, 7, 7, device="meta")
     c = torch.zeros(8, device="meta")
@@ -248,3 +250,52 @@ def test_geometry_and_launchers():
         fused_stem_train(x, w, c, c, c)
     with pytest.raises(ValueError, match="CUDA"):
         fused_stem_eval(x, w, c, c, c, c, c)
+
+
+@pytest.mark.parametrize("h", [112, 21])
+def test_dx_partials_cover_their_rows_and_reduce_to_dx(h):
+    """Each slab's dx partial (its own conv rows' dz, one channel chunk,
+    through the transposed 7×7 p2 conv) is zero outside the rows
+    ``dx_slab_rows`` gives it, and the reduce pass (its plain version, the
+    wrapper's CPU path) sums the partials to the conv's input gradient
+    without reading the rows left unwritten (NaN here). float64, 1e-12."""
+    rs = np.random.RandomState(6)
+    b, c, w = 2, 16, 13
+    hc, wc, _, _, slabs = geometry(h, w)
+    chunk, own = stem_fused.CHANNEL_CHUNK, 2 * stem_fused.POOL_ROWS
+    dz = torch.from_numpy(rs.randn(b, c, hc, wc))
+    weight = torch.from_numpy(rs.randn(c, 1, 7, 7))
+    dx = torch.nn.functional.conv_transpose2d(dz, weight, padding=2)[:, 0]
+    part = torch.full((b, slabs, c // chunk, stem_fused.DX_ROWS, w),
+                      float("nan"), dtype=torch.float64)
+    covered = torch.zeros(h, dtype=torch.int64)
+    for s in range(slabs):
+        first, rows = dx_slab_rows(s, h)
+        covered[rows.start:rows.stop] += 1
+        for ch in range(c // chunk):
+            dz_sc = torch.zeros_like(dz)
+            sl = (slice(None), slice(ch * chunk, (ch + 1) * chunk),
+                  slice(own * s, own * (s + 1)))
+            dz_sc[sl] = dz[sl]
+            contrib = torch.nn.functional.conv_transpose2d(
+                dz_sc, weight, padding=2)[:, 0]
+            outside = torch.ones(h, dtype=torch.bool)
+            outside[rows.start:rows.stop] = False
+            assert not contrib[:, outside].any()
+            part[:, s, ch, rows.start - first:rows.stop - first] = \
+                contrib[:, rows.start:rows.stop]
+    assert covered.min() >= 1 and covered.max() <= 2
+    got = stem_dx_reduce(part, h)
+    assert got.shape == (b, h, w)
+    np.testing.assert_allclose(got.numpy(), dx.numpy(), rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize("shape", [(2, 13, 1, 14, 9), (2, 14, 1, 12, 9)])
+def test_dx_reduce_rejects_partials_of_another_layout(shape):
+    """Partials whose slab count or row count is not the kernels' layout
+    for the image's height raise, on the CPU as on the card, before any
+    row is read: at H = 112 a block covers 4 pooled rows (14 slabs) and
+    its dx partial 2·4 + 6 = 14 input rows."""
+    assert geometry(112, 9)[4] == 14 and stem_fused.DX_ROWS == 14
+    with pytest.raises(ValueError, match="partials"):
+        stem_dx_reduce(torch.zeros(shape), 112)
