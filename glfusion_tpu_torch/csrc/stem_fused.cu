@@ -48,12 +48,15 @@
 // hit eight different bank groups. The last strip of a row is masked
 // (110 = 13 x 8 + 6). Each output sums its 49 taps in the first engine's
 // order (kernel row, then column, from the bias), so z keeps its bits.
+// stem_bwd2 has the engine store z rows at the input's padded stride, so
+// that its dz, written over z, is dx's zero-padded operand as it stands.
 //
 // Max-pool routing follows torch's rule (the plain version's max_pool2d
 // backward): one position per window, the first maximum of relu(n) in
-// row-major order. stem_bwd2 gathers: each conv position of the block's
-// own rows [2 p0, 2 p0 + 2 R) checks the at most 2 x 2 windows that contain
-// it and takes dy from a window only if it is that window's chosen position,
+// row-major order. stem_bwd2 gathers, a warp per channel: a lane per
+// window records its choice and its dy gated by the ReLU there, then each
+// conv position of the block's own rows [2 p0, 2 p0 + 2 R) adds the gated
+// dy of those of its at most 2 x 2 windows that chose it, in a fixed order,
 // so routing needs no atomics. stem_bwd1 needs only two sums a channel, so
 // it sums over the windows whose choice lies in its own rows (a warp per
 // channel, a lane per window). The Pallas kernel sends dy to every tied
@@ -83,9 +86,13 @@
 // 2 * B * 110^2 * 64 * 49 = 3.04 GFLOP, 45 us at 67 TFLOP/s float32 FMA; its
 // bytes (2 MB read, 31 MB written) take 10 us at 3.35 TB/s. The backward
 // needs two conv-sized products (dW and dx), 91 us. The kernels recompute
-// the conv in each of the four passes and use no tensor cores; stem_stats'
-// two-pass moments and stem_bwd2's dW and dx loops still read both
-// operands of every FMA from shared memory.
+// the conv in each of the four passes and use no tensor cores. stem_bwd2's
+// dW and dx run the engine's discipline (16-byte shared loads into
+// registers, 7 x 8 FMAs a kernel row, a warp per channel for dW, dx's rows
+// balanced over the warps); stem_stats' moments are a warp per channel.
+// Every kernel fits 80 registers without spilling, 3 blocks an SM; the
+// backward's blocks take 47 KB (stem_bwd1) and 66 KB (stem_bwd2) of shared
+// memory at W = 112.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -103,9 +110,9 @@ constexpr int STRIP = 8;       // conv outputs a lane computes along a row
 constexpr int DXR = 2 * R + 6;  // input rows of a block's dx partial
 static_assert(CC == WARPS, "the conv engine gives each warp one channel");
 // Blocks per SM the register budget must allow: 3 caps a thread at 80
-// registers, which the engine fits without spilling; shared memory allows
-// 4 in the backward (about 50 KB a block), but at 64 registers the engine
-// spills.
+// registers, which the engine and stem_bwd2's 49 dW accumulators fit
+// without spilling; shared memory allows 4 blocks of stem_bwd1 and 3 of
+// stem_bwd2, but at 64 registers the engine spills.
 constexpr int MIN_BLOCKS = 3;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -139,40 +146,44 @@ Geom make_geom(int b, int h, int w, int c) {
 // Per-channel vectors, one row of C floats each, in one (CHAN_ROWS, C) array.
 enum { CH_BIAS = 0, CH_A, CH_BETA, CH_MU, CH_INV, CH_EDN, CH_EDNX, CHAN_ROWS };
 
-// Shared memory of a block whose conv rows are [zr0, zr0 + zrows).
+// Shared memory of a block whose conv rows are [zr0, zr0 + zrows), with
+// z's rows zs floats apart. stem_bwd2 also carves `wf` and `dxs`.
 struct Smem {
   float* xin;          // (zrows + 6, xw): input rows zr0 - 2 .., zero padded
   float* ws;           // (CC, 49) weights of the chunk
-  float* zb;           // (CC, zrows, wc) conv values (dz in bwd2)
-  float* red;          // (WARPS, CC) reduction scratch
+  float* zb;           // (CC, zrows, zs) conv values (dz in bwd2)
+  float* wf;           // (CC, 7, 8) weights flipped 180 degrees, zero padded
+  float* dxs;          // (2, DXR, xw) dx of the chunk's two channel halves
   signed char* arg;    // (CC, R + 1, wp) chosen position of each window
 };
 
-size_t smem_bytes(const Geom& g, int zrows, bool with_arg) {
-  size_t f = (size_t)(zrows + 6) * g.xw + CC * KK +
-             (size_t)CC * zrows * g.wc + WARPS * CC;
-  return f * sizeof(float) + (with_arg ? (size_t)CC * (R + 1) * g.wp : 0);
+size_t smem_bytes(const Geom& g, int zrows, int zs, bool bwd2) {
+  size_t f = (size_t)(zrows + 6) * g.xw + CC * KK + (size_t)CC * zrows * zs;
+  if (bwd2) f += CC * KS * 8 + 2 * DXR * g.xw;
+  return f * sizeof(float) + (bwd2 ? (size_t)CC * (R + 1) * g.wp : 0);
 }
 
-__device__ Smem carve(const Geom& g, int zrows) {
+__device__ Smem carve(const Geom& g, int zrows, int zs) {
   extern __shared__ __align__(16) float smem[];
   Smem s;
   s.xin = smem;
   s.ws = s.xin + (zrows + 6) * g.xw;
   s.zb = s.ws + CC * KK;
-  s.red = s.zb + CC * zrows * g.wc;
-  s.arg = reinterpret_cast<signed char*>(s.red + WARPS * CC);
+  s.wf = s.zb + CC * zrows * zs;
+  s.dxs = s.wf + CC * KS * 8;
+  s.arg = reinterpret_cast<signed char*>(s.dxs + 2 * DXR * g.xw);
   return s;
 }
 
 // Stage the input rows and weights, then z for conv rows [zr0, zr0 + zrows)
-// and all wc columns (rows outside [0, hc) are computed from zero padding
-// and masked by the callers).
+// and all wc columns, column xx of row lr at zb[(cc * zrows + lr) * zs +
+// zoff + xx] (rows outside [0, hc) are computed from zero padding and
+// masked by the callers).
 template <typename T>
 __device__ void stage(const Geom& g, const Smem& s, const T* __restrict__ x,
                       const float* __restrict__ w,
                       const float* __restrict__ chan, int b, int c0, int zr0,
-                      int zrows) {
+                      int zrows, int zs, int zoff) {
   const int tid = threadIdx.x, cc = tid >> 5, lane = tid & 31;
   const T* xb = x + (long long)b * g.h * g.w;
   for (int r = cc; r < zrows + 6; r += WARPS) {  // a warp per input row
@@ -196,7 +207,7 @@ __device__ void stage(const Geom& g, const Smem& s, const T* __restrict__ x,
 #pragma unroll
   for (int k = 0; k < KK; ++k) wr[k] = s.ws[cc * KK + k];
   const float bias = chan[CH_BIAS * g.c + c0 + cc];
-  float* zc = s.zb + cc * zrows * g.wc;
+  float* zc = s.zb + cc * zrows * zs + zoff;
   const int tasks = zrows * ((g.wc + STRIP - 1) / STRIP);
   for (int t = lane; t < tasks; t += 32) {
     const int lr = t % zrows, x0 = t / zrows * STRIP;
@@ -220,8 +231,10 @@ __device__ void stage(const Geom& g, const Smem& s, const T* __restrict__ x,
         for (int k = 0; k < STRIP; ++k)
           acc[k] = fmaf(wr[i * KS + j], in[k + j], acc[k]);
     }
-    float* zr = zc + lr * g.wc + x0;
-    if (g.wc % 2 == 0) {  // pairs: 8-byte stores, conflict-free
+    float* zr = zc + lr * zs + x0;
+    // pairs: 8-byte stores (zs and zoff are then even; conflict-free at
+    // zs = wc)
+    if (g.wc % 2 == 0) {
 #pragma unroll
       for (int k = 0; k < STRIP; k += 2)
         if (x0 + k < g.wc)
@@ -244,28 +257,12 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Sums each of the CC values over the block; every thread gets the totals.
-__device__ void block_sum(float (&v)[CC], float* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int cc = 0; cc < CC; ++cc) v[cc] = warp_sum(v[cc]);
-  if (lane == 0)
-#pragma unroll
-    for (int cc = 0; cc < CC; ++cc) red[warp * CC + cc] = v[cc];
-  __syncthreads();
-#pragma unroll
-  for (int cc = 0; cc < CC; ++cc) {
-    float t = 0.f;
-    for (int k = 0; k < WARPS; ++k) t += red[k * CC + cc];
-    v[cc] = t;
-  }
-  __syncthreads();
-}
-
 // ---------------------------------------------------------------- kernels
 
 // part: (3, B, slabs, C) = count, mean, M2 of the block's own conv rows
-// [2 p0, 2 p0 + 2 R) within [0, hc).
+// [2 p0, 2 p0 + 2 R) within [0, hc). After the conv, warp cc takes channel
+// cc alone: its lanes stride the valid positions, a fixed-order warp_sum
+// gives the mean, a second pass over shared z gives M2.
 template <typename T>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 stats_kernel(const T* __restrict__ x, const float* __restrict__ w,
@@ -273,36 +270,26 @@ stats_kernel(const T* __restrict__ x, const float* __restrict__ w,
              Geom g) {
   const int slab = blockIdx.x, c0 = blockIdx.y * CC, b = blockIdx.z;
   const int zr0 = 2 * slab * R, zrows = 2 * R;
-  const Smem s = carve(g, zrows);
-  stage(g, s, x, w, chan, b, c0, zr0, zrows);
-  const int rows = min(zrows, g.hc - zr0);
-  const int n = rows * g.wc;
-  const int n_z = zrows * g.wc;
-  float v[CC];
-#pragma unroll
-  for (int cc = 0; cc < CC; ++cc) {
-    v[cc] = 0.f;
-    for (int e = threadIdx.x; e < n; e += THREADS) v[cc] += s.zb[cc * n_z + e];
+  const Smem s = carve(g, zrows, g.wc);
+  stage(g, s, x, w, chan, b, c0, zr0, zrows, g.wc, 0);
+  const int cc = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int n = min(zrows, g.hc - zr0) * g.wc;
+  const float* zc = s.zb + cc * zrows * g.wc;
+  float v = 0.f;
+  for (int e = lane; e < n; e += 32) v += zc[e];
+  const float mean = __shfl_sync(0xffffffffu, warp_sum(v), 0) / n;
+  v = 0.f;
+  for (int e = lane; e < n; e += 32) {
+    const float d = zc[e] - mean;
+    v = fmaf(d, d, v);
   }
-  block_sum(v, s.red);
-  float mean[CC];
-#pragma unroll
-  for (int cc = 0; cc < CC; ++cc) {
-    mean[cc] = v[cc] / n;
-    v[cc] = 0.f;
-    for (int e = threadIdx.x; e < n; e += THREADS) {
-      const float d = s.zb[cc * n_z + e] - mean[cc];
-      v[cc] = fmaf(d, d, v[cc]);
-    }
-  }
-  block_sum(v, s.red);
-  if (threadIdx.x < CC) {
-    const int cc = threadIdx.x;
+  v = warp_sum(v);
+  if (lane == 0) {
     const long long plane = (long long)g.b * g.slabs * g.c;
     const long long i = ((long long)b * g.slabs + slab) * g.c + c0 + cc;
     part[i] = static_cast<float>(n);
-    part[plane + i] = mean[cc];
-    part[2 * plane + i] = v[cc];
+    part[plane + i] = mean;
+    part[2 * plane + i] = v;
   }
 }
 
@@ -316,8 +303,8 @@ norm_pool_kernel(const T* __restrict__ x, const float* __restrict__ w,
   const int slab = blockIdx.x, c0 = blockIdx.y * CC, b = blockIdx.z;
   const int p0 = slab * R;
   const int zr0 = 2 * p0 - 1, zrows = 2 * R + 1;
-  const Smem s = carve(g, zrows);
-  stage(g, s, x, w, chan, b, c0, zr0, zrows);
+  const Smem s = carve(g, zrows, g.wc);
+  stage(g, s, x, w, chan, b, c0, zr0, zrows, g.wc, 0);
   const int cc = threadIdx.x >> 5, c = c0 + cc;
   const float a = chan[CH_A * g.c + c], be = chan[CH_BETA * g.c + c],
               mu = chan[CH_MU * g.c + c];
@@ -340,84 +327,6 @@ norm_pool_kernel(const T* __restrict__ x, const float* __restrict__ w,
   }
 }
 
-// stem_bwd2's routing: stage conv rows [2 p0 - 1, 2 p0 + 2 R + 2), choose
-// each window's position (windows p0 .. p0 + R), then visit each own conv
-// position with its routed and gated gradient dn. `visit(cc, e, z, dn,
-// valid)` runs once per own position (valid or not: dn = 0 and `valid`
-// false outside the map).
-template <typename T, typename Visit>
-__device__ void backward_common(const Geom& g, const Smem& s,
-                                const T* __restrict__ x,
-                                const float* __restrict__ w,
-                                const float* __restrict__ chan,
-                                const T* __restrict__ dy, int b, int c0,
-                                int p0, Visit visit) {
-  const int zr0 = 2 * p0 - 1, zrows = 2 * R + 3;
-  stage(g, s, x, w, chan, b, c0, zr0, zrows);
-  const int n_z = zrows * g.wc;
-  // 1. each window's chosen position: the first max of relu(n), row-major
-  const int n_win = (R + 1) * g.wp;
-  for (int cc = 0; cc < CC; ++cc) {
-    const int c = c0 + cc;
-    const float a = chan[CH_A * g.c + c], be = chan[CH_BETA * g.c + c],
-                mu = chan[CH_MU * g.c + c];
-    const float* zc = s.zb + cc * n_z;
-    for (int e = threadIdx.x; e < n_win; e += THREADS) {
-      const int wr = e / g.wp, px = e % g.wp, py = p0 + wr;
-      int best = -1;
-      if (py < g.hp) {
-        float bv = -INFINITY;
-        for (int di = 0; di < 3; ++di) {
-          const int y = 2 * py - 1 + di;
-          if (y < 0 || y >= g.hc) continue;
-          for (int dj = 0; dj < 3; ++dj) {
-            const int xx = 2 * px - 1 + dj;
-            if (xx < 0 || xx >= g.wc) continue;
-            const float hv =
-                fmaxf(fmaf(zc[(y - zr0) * g.wc + xx] - mu, a, be), 0.f);
-            if (hv > bv) {
-              bv = hv;
-              best = di * 3 + dj;
-            }
-          }
-        }
-      }
-      s.arg[cc * n_win + e] = static_cast<signed char>(best);
-    }
-  }
-  __syncthreads();
-  // 2. own rows: gather dy from the windows that chose this position
-  const int n_own = 2 * R * g.wc;
-#pragma unroll
-  for (int cc = 0; cc < CC; ++cc) {
-    const int c = c0 + cc;
-    const float a = chan[CH_A * g.c + c], be = chan[CH_BETA * g.c + c],
-                mu = chan[CH_MU * g.c + c];
-    const T* dyc = dy + ((long long)b * g.c + c) * g.hp * g.wp;
-    const signed char* argc = s.arg + cc * n_win;
-    for (int e = threadIdx.x; e < n_own; e += THREADS) {
-      const int lr = 1 + e / g.wc, xx = e % g.wc, y = zr0 + lr;
-      const float z = s.zb[cc * n_z + lr * g.wc + xx];
-      float dn = 0.f;
-      const bool valid = y < g.hc;
-      if (valid && fmaf(z - mu, a, be) > 0.f) {
-        // windows containing row y: py = y >> 1 (at offset 1 or 2), and
-        // for odd y also py + 1 (offset 0); the same for the columns
-        int pys[2], ris[2], nys = 0, pxs[2], cis[2], nxs = 0;
-        pys[nys] = y >> 1; ris[nys++] = y - 2 * (y >> 1) + 1;
-        if ((y & 1) && (y >> 1) + 1 < g.hp) { pys[nys] = (y >> 1) + 1; ris[nys++] = 0; }
-        pxs[nxs] = xx >> 1; cis[nxs++] = xx - 2 * (xx >> 1) + 1;
-        if ((xx & 1) && (xx >> 1) + 1 < g.wp) { pxs[nxs] = (xx >> 1) + 1; cis[nxs++] = 0; }
-        for (int u = 0; u < nys; ++u)
-          for (int q = 0; q < nxs; ++q)
-            if (argc[(pys[u] - p0) * g.wp + pxs[q]] == ris[u] * 3 + cis[q])
-              dn += to_f32(dyc[pys[u] * g.wp + pxs[q]]);
-      }
-      visit(cc, lr * g.wc + xx, z, dn, valid);
-    }
-  }
-}
-
 // part: (2, B, slabs, C) = sum of dn, sum of dn * xhat over own positions.
 // Summed by window rather than by position: dn at a position is the sum of
 // dy over the windows that chose it, gated by n > 0, so the block's sums
@@ -433,8 +342,8 @@ bwd1_kernel(const T* __restrict__ x, const float* __restrict__ w,
             float* __restrict__ part, Geom g) {
   const int slab = blockIdx.x, c0 = blockIdx.y * CC, b = blockIdx.z;
   const int p0 = slab * R, zr0 = 2 * p0 - 1, zrows = 2 * R + 3;
-  const Smem s = carve(g, zrows);
-  stage(g, s, x, w, chan, b, c0, zr0, zrows);
+  const Smem s = carve(g, zrows, g.wc);
+  stage(g, s, x, w, chan, b, c0, zr0, zrows, g.wc, 0);
   const int cc = threadIdx.x >> 5, lane = threadIdx.x & 31, c = c0 + cc;
   const float a = chan[CH_A * g.c + c], be = chan[CH_BETA * g.c + c],
               mu = chan[CH_MU * g.c + c], inv = chan[CH_INV * g.c + c];
@@ -478,9 +387,44 @@ bwd1_kernel(const T* __restrict__ x, const float* __restrict__ w,
   }
 }
 
+// The dx work of a block: its DXR = 14 partial rows as 7 row pairs, each
+// summed over the chunk's channels in two halves of 4. Entry p + 7 h of a
+// warp is pair p, half h (-1: none). Pair p reaches 2, 4, 6, 7, 6, 4, 2 of
+// the 7 kernel rows (the rest fall outside the own dz rows), so the 14
+// items are spread over the 8 warps by that count: 7 or 8 rows a warp.
+constexpr int DX_PAIRS = DXR / 2;
+static_assert(R == 4 && WARPS == 8 && CC == 8,
+              "the dx schedule is written for 14 partial rows, 8 warps and "
+              "8 channels");
+__constant__ signed char kDxItems[WARPS][2] = {
+    {3, -1}, {10, -1}, {2, 0}, {9, 7}, {4, 6}, {11, 13}, {1, 5}, {8, 12}};
+
 // dwp: (B, slabs, C, 49), dbp: (B, slabs, C), dxp: (B, slabs, C / CC, DXR,
 // W), row r of a block's slice being input row 2 R slab - 2 + r; rows
 // outside the image are not written.
+//
+// The block stages conv rows [2 p0 - 1, 2 p0 + 2 R + 2), z's rows zs = xw
+// floats apart with 4 zero columns on the left and zeros right of wc, so
+// that dz, written over z in place, is already the zero-padded operand of
+// dx. Then, warp cc for channel cc alone:
+//   1. chooses each window's position (windows p0 .. p0 + R, a lane per
+//      window): the first max of relu(n), row-major, as torch's max_pool2d
+//      backward routes, and records the window's dy gated by the ReLU
+//      there (one read of dy per window);
+//   2. gathers dn at each own position (conv rows [2 p0, 2 p0 + 2 R)) from
+//      the at most 2 x 2 windows that chose it, writes dz over z, zeroes
+//      the halo rows, and sums db with a fixed-order warp_sum;
+//   3. sums dW over its own rows: a lane task is (own row, 8-wide strip);
+//      per kernel row it loads the strip's 8 dz values and the 16 inputs
+//      around them as 16-byte loads and runs 7 x 8 FMAs from registers.
+// After a barrier, dx is the correlation of the padded dz with the weights
+// flipped 180 degrees: a lane takes a strip of 8 outputs of one partial
+// row and, for each channel of its half and each kernel row that reaches
+// an own dz row, runs 7 x 8 FMAs from four 16-byte dz loads and two
+// warp-uniform weight loads. The two halves are added in a fixed order.
+// (Running the engine per channel into per-warp dx partials instead would
+// reuse stage() but needs CC x DXR x W floats, 50 KB at W = 112, more a
+// block: 2 blocks an SM instead of 3. The two halves take 13 KB.)
 template <typename T>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 bwd2_kernel(const T* __restrict__ x, const float* __restrict__ w,
@@ -489,72 +433,205 @@ bwd2_kernel(const T* __restrict__ x, const float* __restrict__ w,
             float* __restrict__ dxp, Geom g) {
   const int slab = blockIdx.x, c0 = blockIdx.y * CC, b = blockIdx.z;
   const int p0 = slab * R, zr0 = 2 * p0 - 1, zrows = 2 * R + 3;
-  const Smem s = carve(g, zrows);
-  const int n_z = zrows * g.wc;
-  float sdz[CC];
-#pragma unroll
-  for (int cc = 0; cc < CC; ++cc) sdz[cc] = 0.f;
-  // dz overwrites z in place: each position reads only its own z
-  backward_common(g, s, x, w, chan, dy, b, c0, p0,
-                  [&](int cc, int e, float z, float dn, bool valid) {
-                    const int c = c0 + cc;
-                    float dz = 0.f;
-                    if (valid) {
-                      const float a = chan[CH_A * g.c + c];
-                      const float xhat = (z - chan[CH_MU * g.c + c]) *
-                                         chan[CH_INV * g.c + c];
-                      dz = a * dn - a * fmaf(xhat, chan[CH_EDNX * g.c + c],
-                                             chan[CH_EDN * g.c + c]);
-                    }
-                    s.zb[cc * n_z + e] = dz;
-                    sdz[cc] += dz;
-                  });
-  // halo rows 0 and [2R + 1, 2R + 3) carry no dz
-  for (int cc = 0; cc < CC; ++cc)
-    for (int e = threadIdx.x; e < 3 * g.wc; e += THREADS) {
-      const int lr = e < g.wc ? 0 : 2 * R + 1 + (e - g.wc) / g.wc;
-      s.zb[cc * n_z + lr * g.wc + e % g.wc] = 0.f;
-    }
-  block_sum(sdz, s.red);  // its barriers also order the writes above
-  const long long blk = (long long)b * g.slabs + slab;
-  if (threadIdx.x < CC) dbp[blk * g.c + c0 + threadIdx.x] = sdz[threadIdx.x];
-  // dW partials: sum over own rows of dz * x window
-  for (int e = threadIdx.x; e < CC * KK; e += THREADS) {
-    const int cc = e / KK, k = e % KK, i = k / KS, j = k % KS;
-    const float* zc = s.zb + cc * n_z;
-    float acc = 0.f;
-    for (int lr = 1; lr <= 2 * R; ++lr) {
-      const float* zr = zc + lr * g.wc;
-      const float* xr = s.xin + (lr + i) * g.xw + j;
-      for (int xx = 0; xx < g.wc; ++xx) acc = fmaf(zr[xx], xr[xx], acc);
-    }
-    dwp[(blk * g.c + c0 + cc) * KK + k] = acc;
+  const int tid = threadIdx.x, cc = tid >> 5, lane = tid & 31, c = c0 + cc;
+  const int zs = g.xw;
+  const Smem s = carve(g, zrows, zs);
+  // z's pad columns and the flipped weights (stage()'s barrier orders them)
+  const int pad = zs - g.wc;
+  for (int e = tid; e < CC * zrows * pad; e += THREADS) {
+    const int q = e % pad;
+    s.zb[e / pad * zs + (q < 4 ? q : q + g.wc)] = 0.f;
   }
-  // dx: padded input rows ir in [1, 2R + 7) receive the transposed conv of
-  // the own dz rows lr = ir - i in [1, 2R]; partial row ir - 1
-  float* dxb =
-      dxp + (((long long)b * g.slabs + slab) * (g.c / CC) + c0 / CC) * DXR * g.w;
-  const int n_dx = DXR * g.w;
-  for (int e = threadIdx.x; e < n_dx; e += THREADS) {
-    const int ir = 1 + e / g.w, col = e % g.w;
-    const int row = zr0 + ir - 2;
-    if (row < 0 || row >= g.h) continue;
-    const int q = col + 2;  // padded column
-    float acc = 0.f;
-    for (int cc = 0; cc < CC; ++cc) {
-      const float* zc = s.zb + cc * n_z;
-      const float* wc_ = s.ws + cc * KK;
-      for (int i = 0; i < KS; ++i) {
-        const int lr = ir - i;
-        if (lr < 1 || lr > 2 * R) continue;
-        for (int j = 0; j < KS; ++j) {
-          const int xx = q - j;
-          if (xx < 0 || xx >= g.wc) continue;
-          acc = fmaf(zc[lr * g.wc + xx], wc_[i * KS + j], acc);
+  for (int e = tid; e < CC * KS * 8; e += THREADS) {
+    const int ch = e / (KS * 8), i = e / 8 % KS, j = e % 8;
+    s.wf[e] = j < KS ? w[(c0 + ch) * KK + (KS - 1 - i) * KS + KS - 1 - j]
+                     : 0.f;
+  }
+  stage(g, s, x, w, chan, b, c0, zr0, zrows, zs, 4);
+  const float a = chan[CH_A * g.c + c], be = chan[CH_BETA * g.c + c],
+              mu = chan[CH_MU * g.c + c], inv = chan[CH_INV * g.c + c];
+  float* zc = s.zb + cc * zrows * zs + 4;  // row lr, column xx: lr * zs + xx
+  // 1. each window's chosen position, and its dy gated by the ReLU there
+  //    (dxs is free until dx: (R + 1) wp <= 2 DXR xw / CC)
+  const T* dyc = dy + ((long long)b * g.c + c) * g.hp * g.wp;
+  signed char* argc = s.arg + cc * (R + 1) * g.wp;
+  float* dyg = s.dxs + cc * (R + 1) * g.wp;
+  for (int wr = 0; wr <= R; ++wr) {
+    const int py = p0 + wr;
+    for (int px = lane; px < g.wp; px += 32) {
+      int best = -1;
+      float gated = 0.f;
+      if (py < g.hp) {
+        float bv = -INFINITY;
+        for (int di = 0; di < 3; ++di) {
+          const int y = 2 * py - 1 + di;
+          if (y < 0 || y >= g.hc) continue;
+          for (int dj = 0; dj < 3; ++dj) {
+            const int xx = 2 * px - 1 + dj;
+            if (xx < 0 || xx >= g.wc) continue;
+            const float hv =
+                fmaxf(fmaf(zc[(y - zr0) * zs + xx] - mu, a, be), 0.f);
+            if (hv > bv) {
+              bv = hv;
+              best = di * 3 + dj;
+            }
+          }
         }
+        if (bv > 0.f) gated = to_f32(dyc[py * g.wp + px]);
+      }
+      argc[wr * g.wp + px] = static_cast<signed char>(best);
+      dyg[wr * g.wp + px] = gated;
+    }
+  }
+  __syncwarp();
+  // 2. dz over the own rows; dz = 0 on rows past the map. dn sums the
+  //    gated dy of the windows that chose the position (a window chooses a
+  //    position with n > 0 exactly when its gated dy is nonzero).
+  const float edn = chan[CH_EDN * g.c + c], ednx = chan[CH_EDNX * g.c + c];
+  float sdz = 0.f;
+  for (int lr = 1; lr <= 2 * R; ++lr) {
+    const int y = zr0 + lr;
+    float* zr = zc + lr * zs;
+    if (y >= g.hc) {
+      for (int xx = lane; xx < g.wc; xx += 32) zr[xx] = 0.f;
+      continue;
+    }
+    // the windows containing row y: py = y >> 1 (at offset 1 or 2), and
+    // for odd y also py + 1 (offset 0); the same for the columns
+    const int py = y >> 1, ri = y - 2 * py + 1;
+    const bool py2 = (y & 1) && py + 1 < g.hp;
+    const signed char* a0 = argc + (py - p0) * g.wp;
+    const signed char* a1 = a0 + g.wp;
+    const float* d0 = dyg + (py - p0) * g.wp;
+    const float* d1 = d0 + g.wp;
+    for (int xx = lane; xx < g.wc; xx += 32) {
+      const float z = zr[xx];
+      const int px = xx >> 1, ci = xx - 2 * px + 1;
+      const bool px2 = (xx & 1) && px + 1 < g.wp;
+      float dn = 0.f;
+      if (a0[px] == ri * 3 + ci) dn += d0[px];
+      if (px2 && a0[px + 1] == ri * 3) dn += d0[px + 1];
+      if (py2) {
+        if (a1[px] == ci) dn += d1[px];
+        if (px2 && a1[px + 1] == 0) dn += d1[px + 1];
+      }
+      const float xhat = (z - mu) * inv;
+      const float dz = a * dn - a * fmaf(xhat, ednx, edn);
+      zr[xx] = dz;
+      sdz += dz;
+    }
+  }
+  // the halo rows 0 and 2 R + 1 become dx's zero rows
+  for (int xx = lane; xx < g.wc; xx += 32) {
+    zc[xx] = 0.f;
+    zc[(2 * R + 1) * zs + xx] = 0.f;
+  }
+  sdz = warp_sum(sdz);
+  const long long blk = (long long)b * g.slabs + slab;
+  if (lane == 0) dbp[blk * g.c + c] = sdz;
+  __syncwarp();
+  // 3. dW[i][j] = sum over own rows lr and columns xx of
+  //    dz[lr][xx] * xin[lr + i][xx + j], all 49 in registers (7 a pass,
+  //    re-loading dz, ran 6 % slower). The ragged last strip reads dz's
+  //    zero pad (or the next row's left pad).
+  {
+    const int tasks = 2 * R * ((g.wc + STRIP - 1) / STRIP);
+    float acc[KK];
+#pragma unroll
+    for (int k = 0; k < KK; ++k) acc[k] = 0.f;
+    for (int t = lane; t < tasks; t += 32) {
+      const int lr = 1 + t % (2 * R), x0 = t / (2 * R) * STRIP;
+      const float* dzr = zc + lr * zs + x0;
+      float d[STRIP];
+#pragma unroll
+      for (int q = 0; q < STRIP / 4; ++q) {
+        const float4 v = *reinterpret_cast<const float4*>(dzr + 4 * q);
+        d[4 * q] = v.x; d[4 * q + 1] = v.y;
+        d[4 * q + 2] = v.z; d[4 * q + 3] = v.w;
+      }
+#pragma unroll
+      for (int i = 0; i < KS; ++i) {
+        const float* xr = s.xin + (lr + i) * g.xw + x0;
+        float in[STRIP + 8];
+#pragma unroll
+        for (int q = 0; q < (STRIP + 8) / 4; ++q) {
+          const float4 v = *reinterpret_cast<const float4*>(xr + 4 * q);
+          in[4 * q] = v.x; in[4 * q + 1] = v.y;
+          in[4 * q + 2] = v.z; in[4 * q + 3] = v.w;
+        }
+#pragma unroll
+        for (int j = 0; j < KS; ++j)
+#pragma unroll
+          for (int k = 0; k < STRIP; ++k)
+            acc[i * KS + j] = fmaf(d[k], in[k + j], acc[i * KS + j]);
       }
     }
-    dxb[(ir - 1) * g.w + col] = acc;
+    float* dwc = dwp + (blk * g.c + c) * KK;
+#pragma unroll
+    for (int k = 0; k < KK; ++k) {
+      const float v = warp_sum(acc[k]);
+      if (lane == 0) dwc[k] = v;
+    }
+  }
+  __syncthreads();  // dx reads every channel's dz
+  // dx partial row r, column col: sum over channels, kernel rows i and
+  // columns j of wf[i][j] * dzpad[r + i - (KS - 2)][col + j], where
+  // dzpad's row lr is dz's own row lr (zero at 0 and 2 R + 1) and its
+  // column col + j is zb's column col + j (dz column col + j - 4).
+  const int nstrips = (g.w + STRIP - 1) / STRIP;
+  for (int it = 0; it < 2; ++it) {
+    const int item = kDxItems[cc][it];
+    if (item < 0) break;
+    const int pair = item % DX_PAIRS, h = item / DX_PAIRS;
+    const int r = 2 * pair + (lane & 1);
+    const int lo = max(0, KS - 2 - 2 * pair);
+    const int hi = min(KS - 1, 2 * R + KS - 2 - 2 * pair);
+    float* out = s.dxs + (h * DXR + r) * g.xw;
+    for (int x0 = (lane >> 1) * STRIP; x0 < nstrips * STRIP;
+         x0 += 16 * STRIP) {
+      float acc[STRIP];
+#pragma unroll
+      for (int k = 0; k < STRIP; ++k) acc[k] = 0.f;
+      for (int ch = h * (CC / 2); ch < (h + 1) * (CC / 2); ++ch) {
+        const float* dzc = s.zb + ch * zrows * zs + x0;
+        const float* wfc = s.wf + ch * KS * 8;
+        for (int i = lo; i <= hi; ++i) {
+          const float* dr = dzc + (r + i - (KS - 2)) * zs;
+          float in[STRIP + 8], wv[8];
+#pragma unroll
+          for (int q = 0; q < (STRIP + 8) / 4; ++q) {
+            const float4 v = *reinterpret_cast<const float4*>(dr + 4 * q);
+            in[4 * q] = v.x; in[4 * q + 1] = v.y;
+            in[4 * q + 2] = v.z; in[4 * q + 3] = v.w;
+          }
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            const float4 v =
+                *reinterpret_cast<const float4*>(wfc + i * 8 + 4 * q);
+            wv[4 * q] = v.x; wv[4 * q + 1] = v.y;
+            wv[4 * q + 2] = v.z; wv[4 * q + 3] = v.w;
+          }
+#pragma unroll
+          for (int j = 0; j < KS; ++j)
+#pragma unroll
+            for (int k = 0; k < STRIP; ++k)
+              acc[k] = fmaf(wv[j], in[k + j], acc[k]);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < STRIP; ++k)
+        if (x0 + k < g.w) out[x0 + k] = acc[k];
+    }
+  }
+  __syncthreads();
+  float* dxb = dxp + (blk * (g.c / CC) + c0 / CC) * DXR * g.w;
+  for (int r = cc; r < DXR; r += WARPS) {
+    const int row = zr0 + r - 1;
+    if (row < 0 || row >= g.h) continue;
+    const float* h0 = s.dxs + r * g.xw;
+    const float* h1 = h0 + DXR * g.xw;
+    for (int col = lane; col < g.w; col += 32)
+      dxb[r * g.w + col] = h0[col] + h1[col];
   }
 }
 
@@ -603,7 +680,7 @@ int prepare(K kernel, size_t bytes, int device) {
 template <typename T>
 int launch_stats(const void* x, const float* w, const float* chan,
                  float* part, const Geom& g, int device, cudaStream_t s) {
-  const size_t bytes = smem_bytes(g, 2 * R, false);
+  const size_t bytes = smem_bytes(g, 2 * R, g.wc, false);
   if (int err = prepare(stats_kernel<T>, bytes, device)) return err;
   stats_kernel<T><<<dim3(g.slabs, g.c / CC, g.b), THREADS, bytes, s>>>(
       static_cast<const T*>(x), w, chan, part, g);
@@ -613,7 +690,7 @@ int launch_stats(const void* x, const float* w, const float* chan,
 template <typename T>
 int launch_norm_pool(const void* x, const float* w, const float* chan,
                      void* out, const Geom& g, int device, cudaStream_t s) {
-  const size_t bytes = smem_bytes(g, 2 * R + 1, false);
+  const size_t bytes = smem_bytes(g, 2 * R + 1, g.wc, false);
   if (int err = prepare(norm_pool_kernel<T>, bytes, device)) return err;
   norm_pool_kernel<T><<<dim3(g.slabs, g.c / CC, g.b), THREADS, bytes, s>>>(
       static_cast<const T*>(x), w, chan, static_cast<T*>(out), g);
@@ -624,7 +701,7 @@ template <typename T>
 int launch_bwd1(const void* x, const float* w, const float* chan,
                 const void* dy, float* part, const Geom& g, int device,
                 cudaStream_t s) {
-  const size_t bytes = smem_bytes(g, 2 * R + 3, false);
+  const size_t bytes = smem_bytes(g, 2 * R + 3, g.wc, false);
   if (int err = prepare(bwd1_kernel<T>, bytes, device)) return err;
   bwd1_kernel<T><<<dim3(g.slabs, g.c / CC, g.b), THREADS, bytes, s>>>(
       static_cast<const T*>(x), w, chan, static_cast<const T*>(dy), part, g);
@@ -635,7 +712,7 @@ template <typename T>
 int launch_bwd2(const void* x, const float* w, const float* chan,
                 const void* dy, float* dwp, float* dbp, float* dxp,
                 const Geom& g, int device, cudaStream_t s) {
-  const size_t bytes = smem_bytes(g, 2 * R + 3, true);
+  const size_t bytes = smem_bytes(g, 2 * R + 3, g.xw, true);
   if (int err = prepare(bwd2_kernel<T>, bytes, device)) return err;
   bwd2_kernel<T><<<dim3(g.slabs, g.c / CC, g.b), THREADS, bytes, s>>>(
       static_cast<const T*>(x), w, chan, static_cast<const T*>(dy), dwp,

@@ -221,6 +221,46 @@ def stem_bwd2(x, w49, chan, dy):
     return dwp, dbp, dxp
 
 
+def stem_bwd2_plain(x, w49, chan, dy):
+    """K2d's own output in plain PyTorch: the partials of ``stem_bwd2``,
+    block by block (each slab's own conv rows, each chunk's channels),
+    with the plain stem's routing (autograd of relu → max_pool2d: the
+    first maximum, gated by n > 0). ``chan`` holds the kernels' rows bias,
+    a, beta, mean, inv, E[dn], E[dn·x̂]. dx partial rows outside the image
+    are NaN, where the kernel leaves them unwritten."""
+    b, _, h, w = x.shape
+    c = w49.shape[0]
+    hc, wc, _, _, slabs = geometry(h, w)
+    own = 2 * POOL_ROWS
+    bias, a, beta, mu, inv, edn, ednx = (r.view(1, c, 1, 1)
+                                         for r in chan.float())
+    x = x.detach().float()
+    weight = w49.detach().float().reshape(c, 1, 7, 7)
+    z = F.conv2d(x, weight, bias.view(c), padding=2)
+    with torch.enable_grad():
+        n = ((z - mu) * a + beta).detach().requires_grad_(True)
+        pooled = F.max_pool2d(F.relu(n), kernel_size=3, stride=2, padding=1)
+        dn, = torch.autograd.grad(pooled, n, dy.detach().float())
+    dz = a * dn - a * (edn + (z - mu) * inv * ednx)
+    # own rows of each slab: (B, C, slabs, 8, wc), zero past the map
+    dz = F.pad(dz, (0, 0, 0, slabs * own - hc)).view(b, c, slabs, own, wc)
+    patches = F.pad(F.unfold(F.pad(x, (2, 2, 2, 2)), 7).view(b, 49, hc, wc),
+                    (0, 0, 0, slabs * own - hc)).view(b, 49, slabs, own, wc)
+    dwp = torch.einsum("bcsyx,bksyx->bsck", dz, patches)
+    dbp = dz.sum((3, 4)).permute(0, 2, 1)
+    # each slab's own rows through the transposed 7×7 p2 conv, one group
+    # per channel chunk: input rows 8·s − 2 ..., DX_ROWS of them
+    dxp = torch.stack([
+        F.conv_transpose2d(dz[:, :, s], weight, padding=(0, 2),
+                           groups=c // CHANNEL_CHUNK)
+        for s in range(slabs)], dim=1)
+    for s in range(slabs):
+        first, rows = dx_slab_rows(s, h)
+        dxp[:, s, :, :rows.start - first] = float("nan")
+        dxp[:, s, :, rows.stop - first:] = float("nan")
+    return dwp, dbp, dxp
+
+
 def stem_dx_reduce_plain(dxp: torch.Tensor, h: int) -> torch.Tensor:
     """The reduce pass in plain PyTorch, in the kernel's order (slab
     ascending, then chunk ascending, from 0): (B, H, W) float32."""

@@ -35,7 +35,9 @@ from glfusion_tpu_torch.experiments.stem_fused import (batch_moments,
                                                        fused_stem_eval,
                                                        fused_stem_train,
                                                        geometry,
-                                                       stem_dx_reduce)
+                                                       stem_bwd2_plain,
+                                                       stem_dx_reduce,
+                                                       stem_dx_reduce_plain)
 from glfusion_tpu_torch.experiments.stem_module import (FusedIEKDStem,
                                                         swap_in_fused_stems)
 from glfusion_tpu_torch.models import GlobalAndLocal
@@ -113,6 +115,52 @@ def test_stem_train_matches_jax(shape):
         atol = 5e-3 if name == "bias" else 2e-4 * np.abs(want).max()
         np.testing.assert_allclose(to_jax(a.grad).numpy(), want, atol=atol,
                                    rtol=2e-4, err_msg=name)
+
+
+@pytest.mark.parametrize("shape", SHAPES[:2])
+def test_bwd2_partials_sum_to_jax_gradients(shape):
+    """``stem_bwd2_plain`` (K2d's partials, block by block) with the
+    per-channel rows the backward gives it: dW and db partials summed over
+    the blocks, and the dx partials through the reduce pass, give JAX's
+    kernel, bias and x gradients (this file's tolerances). The dx partial
+    rows outside the image are NaN and the reduce pass never reads them."""
+    b, h, w, c = shape
+    rs = np.random.RandomState(5)
+    x = rs.randn(b, h, w, 1).astype(np.float32)
+    params = _params(rs, c)
+    hc, wc, hp, wp, slabs = geometry(h, w)
+    dy = rs.randn(b, hp, wp, c).astype(np.float32)
+    _, _, _, (dx_j, dk_j, db_j, _, _) = _jax_train(x, *params, dy)
+
+    xt, wt, bias, gamma, beta = _torch_args(x, *params)
+    dyt = torch.from_numpy(dy).permute(0, 3, 1, 2).contiguous()
+    out, mean, var = fused_stem_train(xt, wt, bias, gamma, beta)
+    (out * dyt).sum().backward()  # Σdn = dβ and Σdn·x̂ = dγ
+    inv = torch.rsqrt(var + stem_fused.EPS)
+    n = b * hc * wc
+    chan = stem_fused._chan(c, xt.device, bias.detach(), gamma.detach() * inv,
+                            beta.detach(), mean, inv, beta.grad / n,
+                            gamma.grad / n)
+    dwp, dbp, dxp = stem_bwd2_plain(xt, wt.reshape(c, 49), chan, dyt)
+    assert dwp.shape == (b, slabs, c, 49) and dbp.shape == (b, slabs, c)
+    assert dxp.shape == (b, slabs, c // stem_fused.CHANNEL_CHUNK,
+                         stem_fused.DX_ROWS, w)
+    for s in range(slabs):
+        first, rows = dx_slab_rows(s, h)
+        inside = torch.zeros(stem_fused.DX_ROWS, dtype=torch.bool)
+        inside[rows.start - first:rows.stop - first] = True
+        assert torch.isfinite(dxp[:, s][:, :, inside]).all()
+        assert torch.isnan(dxp[:, s][:, :, ~inside]).all()
+    dx = stem_dx_reduce_plain(dxp, h)
+    dk_j, db_j, dx_j = (np.asarray(g) for g in (dk_j, db_j, dx_j))
+    np.testing.assert_allclose(
+        dwp.sum((0, 1)).reshape(c, 7, 7).permute(1, 2, 0)[:, :, None].numpy(),
+        dk_j, atol=2e-4 * np.abs(dk_j).max(), rtol=2e-4, err_msg="kernel")
+    np.testing.assert_allclose(dbp.sum((0, 1)).numpy(), db_j, atol=5e-3,
+                               rtol=2e-4, err_msg="bias")
+    np.testing.assert_allclose(dx[..., None].numpy(), dx_j,
+                               atol=2e-4 * np.abs(dx_j).max(), rtol=2e-4,
+                               err_msg="x")
 
 
 def test_stem_values_match_jax_iekd_stem():
