@@ -21,10 +21,10 @@ nonzero:
           against the float64 naive chain at the serving shape in float32
           and at both clip shapes in bfloat16.
   kernel_backward  the TPAVI kernel's autograd backward at the train
-          shapes (8 and 40, 2352, 1024) against autograd of the plain
+          shapes (8, 40 and 48, 2352, 1024) against autograd of the plain
           version: dθ, dφ, dg.
   stem    the five fused-stem kernels against the plain (cuDNN) stem at
-          B = 8 and 40, 112², C = 64, float32 and bfloat16: pooled output,
+          B = 8, 40 and 48, 112², C = 64, float32 and bfloat16: pooled output,
           batch mean and variance, all five gradients, eval output;
           ``stem_bwd2``'s own dW, db and dx partials against its plain
           version; the dx reduce pass against its plain version; two runs
@@ -39,6 +39,10 @@ nonzero:
           against the plain-torch naive and reassociated attention orders.
   profile where one serving forward's device time goes (torch.profiler);
           printed before the serve line.
+  aspp    the ASPP's clipped-tap form against its plain dilated
+          convolutions on the card, at the f4 of 112² and 160² clips
+          (28², 40²), float32 and bfloat16: output, input and weight
+          gradients; both forms timed.
   train   the full-width flagship trains through ``Trainer`` with the TPAVI
           kernel and a ``FusedIEKDStem`` in every view on a small synthetic
           corpus (one epoch of a few steps), then validates; launch counts,
@@ -46,6 +50,12 @@ nonzero:
           validation Dice; one step through the kernels held against the
           same step through the plain versions; the saved checkpoint loads
           back.
+  train_bf16  the same flagship in JAX bench.py's recorded configuration,
+          bfloat16 with remat, trains one epoch through ``Trainer`` in each
+          form of the cycle pass (the plain step, ``cycle_light``,
+          ``fuse_passes``): launch counts, finite losses, s/step, peak
+          memory; a profiled plain step and one step held against the plain
+          versions at a bfloat16 tolerance.
 
 The last lines are the kernels' record, the card's ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``. Without CUDA, or outside a checkout, it
@@ -77,6 +87,7 @@ KERNEL_SHAPES = [  # (B, N, C'), dtypes
     ((4, 300, 1024), ("float32", "bfloat16")),   # N <= C': (θφᵀ)g order
     ((2, 192, 1536), ("float32", "bfloat16")),   # C' > 1024
     ((40, 2352, 1024), ("float32", "bfloat16")),  # 112² clips
+    ((48, 2352, 1024), ("float32", "bfloat16")),  # fused passes: 8 + 40
     ((40, 4800, 1024), ("float32", "bfloat16")),  # 160² clips
 ]
 KERNEL_TOL = {"float32": 2e-5, "bfloat16": 1e-2}  # max|y-ref| / max|ref|
@@ -90,12 +101,14 @@ SERVE_SHAPE = (40, 2352, 1024)
 NAIVE64 = {(SERVE_SHAPE, "float32"), ((40, 2352, 1024), "bfloat16"),
            ((40, 4800, 1024), "bfloat16")}
 CLIPS = [("c0", 112, 40), ("c1", 112, 40), ("c2", 112, 27), ("c3", 160, 40)]
-# the TPAVI kernel's train shapes: the supervised pass (8 frames) and the
-# cycle pass (40-frame clips), 3 views of 28² tokens, C' = 1024
-K1_TRAIN_SHAPES = [(8, 2352, 1024), (40, 2352, 1024)]
+# the TPAVI kernel's train shapes: the supervised pass (8 frames), the
+# cycle pass (40-frame clips) and the fused pass (both), 3 views of 28²
+# tokens, C' = 1024
+K1_TRAIN_SHAPES = [(8, 2352, 1024), (40, 2352, 1024), (48, 2352, 1024)]
 K1_GRAD_TOL = 1e-4  # max|d − ref| / max|ref|, float32
-# the stem at the train step's batches: 8 supervised frames, 40 clip frames
-STEM_BATCHES = (8, 40)
+# the stem at the train step's batches: 8 supervised frames, 40 clip
+# frames, 48 in a fused pass
+STEM_BATCHES = (8, 40, 48)
 STEM_HW, STEM_C = 112, 64
 STEM_TOL = {  # relative max error of the output and the statistics, and
     # relative norm error of the gradients; bf16 holds one output rounding
@@ -106,6 +119,24 @@ STEM_TOL = {  # relative max error of the output and the statistics, and
 # patient repeated 16 times an epoch → 4 steps of batch 8
 TRAIN_PATIENTS, TRAIN_REPEAT = 4, 16
 STEP_TOL = {"loss": 1e-4, "grad": 1e-3}  # relative; see step_agreement
+# bfloat16 (one rounding is 2⁻⁸ relative, and any two summation orders
+# round some near-tied sums apart): each loss and gradient within 10× the
+# larger of two second plain paths' own differences + 1e-2 (PERF.md
+# section 2)
+STEP_TOL_BF16 = {"loss": 1e-2, "loss_noise": 10, "grad": 1e-2,
+                 "noise_paths": 2}
+# the ASPP check: f4 of a 40-frame clip at 112² (28²) and 160² (40²), the
+# clipped-tap form against plain dilated convolutions; relative norm of
+# the output and of every gradient. The gradients pass train-mode BNs and
+# ReLUs, whose gates at zero flip between summation orders (float32:
+# measured up to 1.3e-3 on a branch's BN bias, PERF.md section 6)
+ASPP_CASES = [(40, 28), (40, 40)]
+ASPP_TOL = {"float32": {"out": 1e-4, "grad": 1e-2},
+            "bfloat16": {"out": 2e-2, "grad": 5e-2}}
+# train_bf16: JAX bench.py's recorded configuration (bfloat16, remat) in
+# each form of the cycle pass, one epoch each on the train phase's corpus
+BF16_VARIANTS = (("plain", {}), ("cycle_light", {"cycle_light": True}),
+                 ("fuse_passes", {"fuse_passes": True}))
 
 
 def emit(phase: str, **fields) -> None:
@@ -790,12 +821,32 @@ def _grads(model) -> dict:
             if p.grad is not None}
 
 
-def _tapwise_stem_class(torch):
+def _second_stem_classes(torch):
+    """(PlainFusedStem, TapwiseStem): the plain paths' stems."""
     nn, F = torch.nn, torch.nn.functional
+    from glfusion_tpu_torch.experiments import stem_fused, stem_module
+
+    class PlainFusedStem(stem_module.FusedIEKDStem):
+        """``FusedIEKDStem`` through the kernels' plain versions: the same
+        arithmetic (x in its type, float32 weights and z) on cuDNN."""
+
+        def forward(self, x):
+            kernels = (stem_module.fused_stem_train,
+                       stem_module.fused_stem_eval)
+            stem_module.fused_stem_train = stem_fused.fused_stem_train_plain
+            stem_module.fused_stem_eval = stem_fused.fused_stem_eval_plain
+            try:
+                return super().forward(x)
+            finally:
+                (stem_module.fused_stem_train,
+                 stem_module.fused_stem_eval) = kernels
 
     class TapwiseStem(nn.Sequential):
         """The plain IEKD stem with its conv summed tap by tap (49
-        multiply-adds, another order than cuDNN's): a second plain path."""
+        multiply-adds, another order than cuDNN's, first to last or last
+        to first) in float32: a second plain path."""
+
+        reverse = False
 
         def __init__(self, c):
             super().__init__(nn.Conv2d(1, c, 7, padding=2),
@@ -804,43 +855,50 @@ def _tapwise_stem_class(torch):
         def forward(self, x):
             conv, bn = self[0], self[1]
             h, w = x.shape[2] - 2, x.shape[3] - 2
-            xp = F.pad(x, (2, 2, 2, 2))
+            xp = F.pad(x.float(), (2, 2, 2, 2))
             z = conv.bias.view(1, -1, 1, 1).expand(x.shape[0], -1, h, w)
-            for i in range(7):
-                for j in range(7):
-                    z = torch.addcmul(z, conv.weight[:, 0, i, j].view(
-                        1, -1, 1, 1), xp[:, :, i:i + h, j:j + w])
+            taps = [(i, j) for i in range(7) for j in range(7)]
+            for i, j in reversed(taps) if self.reverse else taps:
+                z = torch.addcmul(z, conv.weight[:, 0, i, j].view(
+                    1, -1, 1, 1), xp[:, :, i:i + h, j:j + w])
             return F.max_pool2d(F.relu(bn(z)), 3, 2, 1)
 
-    return TapwiseStem
+    class ReversedTapwiseStem(TapwiseStem):
+        reverse = True
+
+    return PlainFusedStem, TapwiseStem, ReversedTapwiseStem
 
 
-def step_agreement(torch, cfg, trainer, batch) -> dict:
+def step_agreement(torch, cfg, trainer, batch, tol=STEP_TOL) -> dict:
     """One train step through the kernels (fused stems, TPAVI kernel)
-    against the same step through the plain versions (``iekd_stem`` on
-    cuDNN, the naive attention chain): same weights, batch, dropout seed and
-    generator state, SGD at lr 0 so the weights stay and the gradients are
-    compared. Both TPAVI W_z BNs get a nonzero scale first (at their zero
-    init no gradient reaches θ, φ, g).
+    against the same step through the plain versions (the fused stems'
+    plain versions on cuDNN, the naive attention chain): same weights,
+    batch, dropout seed and generator state, SGD at lr 0 so the weights stay
+    and the gradients are compared. Both TPAVI W_z BNs get a nonzero scale
+    first (at their zero init no gradient reaches θ, φ, g).
 
-    Tolerances: the losses within 1e-4 (relative). Gradients: float32 with
-    TF32 off, but every path sums in its own order. A rounding-level
+    Tolerances: the losses within ``tol["loss"]`` (relative; in bfloat16
+    plus ``tol["loss_noise"]``× the second plain path's own difference).
+    Gradients: every path sums in its own order. A rounding-level
     difference decides a near-tied pool window or a ReLU gate at zero
     otherwise (measured: one such window in 1.3 M moves the stem's dx by
     8e-4 in relative norm), and train-mode BNs amplify it where a gradient
     is a small difference of large sums. The yardstick is the plain path's
     own noise: the same step through a second plain path, equal in real
     arithmetic (the reassociated attention order and the stem's conv summed
-    tap by tap). Each tensor's relative norm error against the plain path
-    must stay within 10× the second path's own + 1e-3. Conv biases followed
-    by a train-mode BN (the stem conv, TPAVI's W_z conv), whose gradients
-    cancel to noise, are measured against their weight gradient's norm.
-    ``worst_ratio`` is the largest error over its allowance (the check
-    fails above 1)."""
+    tap by tap), or the larger of two (``tol["noise_paths"]``; the second
+    sums the taps last to first, with the naive order). Each tensor's
+    relative norm error against the plain path must stay within 10× that
+    noise + ``tol["grad"]``. Conv
+    biases followed by a train-mode BN (the stem conv, TPAVI's W_z conv),
+    whose gradients cancel to noise, are measured against their weight
+    gradient's norm. ``worst_ratio`` is the largest error over its
+    allowance (the check fails above 1)."""
     from glfusion_tpu_torch.models import GlobalAndLocal
     from glfusion_tpu_torch.train.step import make_train_step
 
-    TapwiseStem = _tapwise_stem_class(torch)
+    PlainFusedStem, TapwiseStem, ReversedTapwiseStem = \
+        _second_stem_classes(torch)
     model_k = trainer.model
     with torch.no_grad():
         for attn in (model_k.global_attn, model_k.local_attn):
@@ -861,24 +919,28 @@ def step_agreement(torch, cfg, trainer, batch) -> dict:
         return {k: float(v.sum()) for k, v in metrics.items()}, _grads(model)
 
     m_k, g_k = run(model_k, "pallas")
+    paths = [(PlainFusedStem, "naive"), (TapwiseStem, "reassoc"),
+             (ReversedTapwiseStem, "naive")][:1 + tol.get("noise_paths", 1)]
     runs = []
-    for tapwise in (False, True):
+    for second, impl in paths:
         model = GlobalAndLocal(cfg.model).cuda()
+        for v, stem in list(model.init_block.items()):
+            model.init_block[v] = second(stem[0].out_channels).cuda()
         model.load_state_dict(state)
-        if tapwise:
-            for v, stem in list(model.init_block.items()):
-                second = TapwiseStem(stem[0].out_channels).cuda()
-                second.load_state_dict(stem.state_dict())
-                model.init_block[v] = second
-        runs.append(run(model, "reassoc" if tapwise else "naive"))
+        runs.append(run(model, impl))
         del model
     torch.cuda.empty_cache()
-    (m_p, g_p), (_, g_r) = runs
-    loss_err = {k: abs(m_k[k] - m_p[k]) / max(abs(m_p[k]), 1e-12)
-                for k in ("loss", "seg_loss", "cyc_loss")}
-    for k, e in loss_err.items():
-        check(e <= STEP_TOL["loss"], f"step {k}: kernels vs plain {e}")
-    check(set(g_k) == set(g_p) == set(g_r), "gradient sets differ")
+    (m_p, g_p), seconds = runs[0], runs[1:]
+    loss_err, loss_noise = {}, {}
+    for k in ("loss", "seg_loss", "cyc_loss"):
+        scale = max(abs(m_p[k]), 1e-12)
+        loss_err[k] = abs(m_k[k] - m_p[k]) / scale
+        loss_noise[k] = max(abs(m_r[k] - m_p[k]) for m_r, _ in seconds) / scale
+        allow = tol["loss"] + tol.get("loss_noise", 0) * loss_noise[k]
+        check(loss_err[k] <= allow,
+              f"step {k}: kernels vs plain {loss_err[k]} > {allow}")
+    check(all(set(g) == set(g_p) for g in [g_k] + [g for _, g in seconds]),
+          "gradient sets differ")
 
     def err(g, name):
         if name.endswith(".0.bias") and (name.startswith("init_block.")
@@ -888,23 +950,25 @@ def step_agreement(torch, cfg, trainer, batch) -> dict:
         return rel_norm(g[name], g_p[name])
 
     grad_err = {n: err(g_k, n) for n in g_p}
-    noise = {n: err(g_r, n) for n in g_p}
+    noise = {n: max(err(g_r, n) for _, g_r in seconds) for n in g_p}
     bad = [(n, grad_err[n], noise[n]) for n in g_p
            if not (math.isfinite(grad_err[n])
-                   and grad_err[n] <= 10 * noise[n] + STEP_TOL["grad"])]
+                   and grad_err[n] <= 10 * noise[n] + tol["grad"])]
     worst = sorted(grad_err.items(), key=lambda kv: -kv[1])[:5]
+    ratio = {n: e / (10 * noise[n] + tol["grad"]) for n, e in grad_err.items()}
     check(not bad, f"step gradients: kernels vs plain beyond the plain "
           f"paths' own noise: {bad[:5]}")
     for attn in ("global_attn", "local_attn"):
         check(g_p[f"{attn}.theta.weight"].norm().item() > 0,
               f"{attn}: no gradient reached the attention")
-    return {"loss_rel_err": loss_err, "tensors": len(grad_err),
+    return {"loss_rel_err": loss_err, "loss_plain_noise": loss_noise,
+            "tensors": len(grad_err),
             "grad_rel_err_max": worst[0][1],
             "grad_rel_err_worst": [(n, e, noise[n]) for n, e in worst],
             "plain_noise_max": max(noise.values()),
-            "worst_ratio": max(e / (10 * noise[n] + STEP_TOL["grad"])
-                               for n, e in grad_err.items()),
-            "tol": "loss 1e-4; grad 10 x second plain path + 1e-3"}
+            "worst_ratio": max(ratio.values()),
+            "worst_ratio_tensor": max(ratio, key=ratio.get),
+            "tol": tol}
 
 
 def train_phase(torch) -> dict:
@@ -1035,7 +1099,173 @@ def train_phase(torch) -> dict:
         step_idle_share=prof["idle_share"], step_agreement=agreement,
         checkpoint=str(path.name))
     emit("train", **rec)
-    return {"train": train_counts, "validation": val_counts, "steps": steps}
+    return {"train": train_counts, "validation": val_counts, "steps": steps,
+            "data_paths": trainer.data_paths}
+
+
+def aspp_phase(torch) -> list:
+    """The clipped-tap ASPP (the form JAX's rule picks for the input's h, w)
+    against the same module computing every branch as a plain convolution,
+    on the same weights and inputs, train mode (dropout 0): the output, the
+    input gradient and every parameter gradient in relative norm; the
+    forward and forward + backward of each form timed."""
+    from glfusion_tpu_torch.config import Config
+    from glfusion_tpu_torch.models.aspp import ASPP, decomposes
+    from glfusion_tpu_torch.models.precision import compute_dtype
+
+    mcfg = Config().model
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    records = []
+    for b, hw in ASPP_CASES:
+        for dt_name in ("float32", "bfloat16"):
+            dt = compute_dtype(dt_name)
+            torch.manual_seed(0)
+            m = ASPP(mcfg.backbone_out_channels, mcfg.aspp_channels,
+                     mcfg.aspp_rates, dropout=0.0, dtype=dt).cuda().train()
+            cin = mcfg.backbone_out_channels
+            x = torch.randn(b, cin, hw, hw, device="cuda",
+                            generator=gen).to(dt)
+            dy = torch.randn(b, mcfg.aspp_channels, hw, hw, device="cuda",
+                             generator=gen).to(dt)
+
+            def forward(plain, grad):
+                if plain:
+                    m.branch_convs = m.dilated_convs
+                try:
+                    m.zero_grad(set_to_none=True)
+                    xx = x.detach().requires_grad_(grad)
+                    y = m(xx)
+                    if grad:
+                        y.backward(dy)
+                        return y, xx.grad, {n: p.grad for n, p in
+                                            m.named_parameters()}
+                    return y
+                finally:
+                    if plain:
+                        del m.branch_convs
+
+            yk, dxk, gk = forward(False, True)
+            yp, dxp, gp = forward(True, True)
+            torch.cuda.synchronize()
+            err = {"out": rel_norm(yk, yp), "dx": rel_norm(dxk, dxp)}
+            err.update({"d" + n: rel_norm(gk[n], gp[n]) for n in gp})
+            limit = ASPP_TOL[dt_name]
+            bad = {k: e for k, e in err.items() if not (
+                math.isfinite(e)
+                and e <= limit["out" if k == "out" else "grad"])}
+            check(not bad, f"aspp {(b, hw)} {dt_name}: clipped taps vs "
+                  f"plain convolutions beyond {limit}: {bad}")
+            ms = {}
+            for form, plain in (("clipped", False), ("plain", True)):
+                ms[form + "_fwd_ms"] = time_ms(
+                    torch, lambda: forward(plain, False), reps=5, warmup=1)
+                ms[form + "_fwd_bwd_ms"] = time_ms(
+                    torch, lambda: forward(plain, True), reps=5, warmup=1)
+            rec = {"batch": b, "hw": hw, "dtype": dt_name,
+                   "rates": list(mcfg.aspp_rates),
+                   "decomposes": [decomposes(r, hw, hw)
+                                  for r in mcfg.aspp_rates],
+                   "rel_norm_err": err, "worst": max(err.values()),
+                   "tol": limit, **ms}
+            records.append(rec)
+            emit("aspp", **rec)
+            del m, x, dy, yk, dxk, gk, yp, dxp, gp
+            torch.cuda.empty_cache()
+    return records
+
+
+def train_bf16_phase(torch, data_paths) -> dict:
+    """JAX bench.py's recorded training configuration on the flagship with
+    fused stems and the TPAVI kernel: bfloat16 with remat, one epoch
+    through ``Trainer`` in each form of the cycle pass."""
+    from glfusion_tpu_torch.config import Config
+    from glfusion_tpu_torch.experiments import stem_fused
+    from glfusion_tpu_torch.experiments.stem_module import swap_in_fused_stems
+    from glfusion_tpu_torch.models import GlobalAndLocal
+    from glfusion_tpu_torch.ops.tpavi_fused import fused_dot_nonlocal
+    from glfusion_tpu_torch.train.trainer import Trainer
+
+    kernels = stem_fused.KERNELS
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_bf16_"))
+    base = Config()
+    base = base.replace(
+        model=dataclasses.replace(base.model, use_pallas_fusion=True,
+                                  dtype="bfloat16", remat=True),
+        data=dataclasses.replace(base.data,
+                                 synthetic_num_patients=TRAIN_PATIENTS,
+                                 train_repeat=TRAIN_REPEAT),
+        train=dataclasses.replace(base.train, num_epochs=1,
+                                  eval_every_epochs=0, save_every_epochs=0,
+                                  save_dir=str(tmp / "ckpt"),
+                                  log_dir=str(tmp / "log")))
+    torch.manual_seed(0)
+    model = GlobalAndLocal(base.model)
+    swap_in_fused_stems(model)
+    views = len(base.model.views)
+    # per step: stem kernels a pass a view, K1 calls (sup global + local,
+    # cycle global + local; cycle_light's cycle global only; one merged
+    # global + the supervised local)
+    expect = {"plain": (2 * views, 4), "cycle_light": (2 * views, 3),
+              "fuse_passes": (views, 2)}
+    counts = {}
+    for name, opts in BF16_VARIANTS:
+        cfg = base.replace(train=dataclasses.replace(base.train, **opts))
+        trainer = Trainer(cfg, data_paths=data_paths, model=model,
+                          verbose=False)
+        step_s = []
+        inner = trainer.train_step
+
+        def timed_step(batch, gen, inner=inner, step_s=step_s):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = inner(batch, gen)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t)
+            return out
+
+        trainer.train_step = timed_step
+        # ---- the main path, counted
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for k in kernels:
+            k.launches = 0
+        fused_dot_nonlocal.launches = 0
+        metrics = trainer.train()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        c = {k.__name__: k.launches for k in kernels}
+        c["fused_dot_nonlocal"] = fused_dot_nonlocal.launches
+        counts[name] = c
+        steps = metrics["steps"]
+        for k in ("loss", "seg_loss", "cyc_loss"):
+            check(math.isfinite(metrics[k]) and metrics[k] > 0,
+                  f"train_bf16 {name}: {k} = {metrics[k]}")
+        per_stem, per_k1 = expect[name]
+        for k in kernels:
+            check(c[k.__name__] == per_stem * steps,
+                  f"train_bf16 {name}: {k.__name__} launched "
+                  f"{c[k.__name__]} times in {steps} steps")
+        check(c["fused_dot_nonlocal"] == per_k1 * steps,
+              f"train_bf16 {name}: TPAVI kernel launched "
+              f"{c['fused_dot_nonlocal']} times in {steps} steps")
+        rec = dict(variant=name, steps=steps, step_s=step_s,
+                   s_per_step_median=statistics.median(step_s[1:] or step_s),
+                   max_memory_allocated=peak, loss=metrics["loss"],
+                   seg_loss=metrics["seg_loss"], cyc_loss=metrics["cyc_loss"],
+                   launches=c)
+        if name == "plain":
+            host = next(trainer.train_loader.batches(cfg.train.batch_size,
+                                                     1))
+            batch = trainer.train_batch(host, trainer._cycle_clips(1))
+            prof = profile_phase(torch, lambda: inner(batch,
+                                                      trainer.generator),
+                                 "train_bf16_profile")
+            rec["step_idle_share"] = prof["idle_share"]
+            rec["step_agreement"] = step_agreement(torch, cfg, trainer, batch,
+                                                   STEP_TOL_BF16)
+        emit("train_bf16", dtype="bfloat16", remat=True, **rec)
+        del trainer
+    return {k: sum(c[k] for c in counts.values()) for k in counts["plain"]}
 
 
 def main() -> None:
@@ -1076,12 +1306,16 @@ def main() -> None:
     records = kernel_phase(torch)
     kernel_backward_phase(torch)
     stem_records = stem_phase(torch)
+    aspp_phase(torch)
     serve_launches = serve_phase(torch)
     train = train_phase(torch)
+    torch.cuda.empty_cache()
+    bf16 = train_bf16_phase(torch, train["data_paths"])  # launches
 
     main_rec = records[(SERVE_SHAPE, "float32")]
     k1_launches = (serve_launches + train["train"]["fused_dot_nonlocal"]
-                   + train["validation"]["fused_dot_nonlocal"])
+                   + train["validation"]["fused_dot_nonlocal"]
+                   + bf16["fused_dot_nonlocal"])
     kernels = [{
         "name": "tpavi_fused_dot_nonlocal",
         "route": "cuda",
@@ -1102,7 +1336,7 @@ def main() -> None:
         "bmm_ms": main_rec["bmm_ms"],
         "reassoc_ms": main_rec["reassoc_ms"],
     }]
-    stem = stem_records[(STEM_BATCHES[-1], "float32")]
+    stem = stem_records[(40, "float32")]
     replaces = {
         "stem_stats": "experiments/stem_pallas.py:289 (and "
                       "experiments/stem_banded.py:172)",
@@ -1124,7 +1358,8 @@ def main() -> None:
             "name": name, "route": "cuda",
             "source": "glfusion_tpu_torch/csrc/stem_fused.cu",
             "replaces": where,
-            "launches": train["train"][name] + train["validation"][name],
+            "launches": (train["train"][name] + train["validation"][name]
+                         + bf16[name]),
             "shape": [stem["batch"], 1, STEM_HW, STEM_HW, STEM_C],
             "dtype": stem["dtype"], "max_abs_err": abs_err[name],
             "ms": stem["ms"][name], "plain_ms": stem["plain_ms"][name],

@@ -40,10 +40,32 @@ def build_parser() -> argparse.ArgumentParser:
                    help="disable the temporal cycle-consistency loss")
     p.add_argument("--dense-cyc", action="store_true",
                    help="use the all-starts cycle loss (dense_seg_cycle)")
+    p.add_argument("--cycle-light", action="store_true",
+                   help="cycle forward computes only the cycle-loss "
+                        "features (identical loss; skipped heads' BN stats "
+                        "stop updating on cycle frames)")
+    p.add_argument("--fuse-passes", action="store_true",
+                   help="run the supervised batch and cycle clip through "
+                        "ONE merged backbone pass per step (cycle-light "
+                        "head semantics; merged-batch BN moments — see "
+                        "TrainConfig.fuse_passes)")
+    p.add_argument("--grad-accum", type=int, default=1,
+                   help="gradient accumulation: one Adam update per this "
+                        "many supervised microbatches of --batch-size "
+                        "(exact big-batch gradient under the sum-reduction "
+                        "loss; cycle clip once per update — see "
+                        "TrainConfig.grad_accum)")
     p.add_argument("--save-dir", default="./result/ckpt")
     p.add_argument("--log-dir", default="./result/log_info/log_01")
     p.add_argument("--tiny", action="store_true",
                    help="miniature topology and corpus for smoke runs")
+    p.add_argument("--dtype", default=None, choices=["float32", "bfloat16"],
+                   help="compute dtype (params stay f32). The reference is "
+                        "f32; bfloat16 halves activation memory. float32 "
+                        "convolutions inherit PyTorch's cuDNN TF32 default")
+    p.add_argument("--remat", action="store_true",
+                   help="rematerialize backbone blocks (saves activation "
+                        "memory at ~30%% extra FLOPs)")
     p.add_argument("--eval-every", type=int, default=1,
                    help="epochs between in-training validations")
     p.add_argument("--save-every", type=int, default=1,
@@ -67,7 +89,10 @@ def config_from_args(args: argparse.Namespace) -> Config:
 
     return dataclasses.replace(
         cfg,
-        model=dataclasses.replace(cfg.model, views=views),
+        model=dataclasses.replace(
+            cfg.model, views=views,
+            dtype=(args.dtype or cfg.model.dtype),
+            remat=args.remat or cfg.model.remat),
         data=dataclasses.replace(
             cfg.data, root=args.data_root,
             clip_length=pick(args.clip_length, cfg.data.clip_length)),
@@ -79,6 +104,9 @@ def config_from_args(args: argparse.Namespace) -> Config:
             num_epochs=pick(args.epochs, cfg.train.num_epochs),
             use_cycle=not args.no_cycle,
             dense_cyc=args.dense_cyc,
+            cycle_light=args.cycle_light,
+            fuse_passes=args.fuse_passes,
+            grad_accum=args.grad_accum,
             save_dir=args.save_dir,
             log_dir=args.log_dir,
             test_views=views,

@@ -51,14 +51,16 @@ class ModelConfig:
     variant: str = "global_and_local"
     # Trainable architecture family (the port implements "glfusion")
     arch: str = "glfusion"
-    # Compute dtype for conv/matmul (params stay fp32).
+    # Compute dtype, float32 or bfloat16 (params stay fp32; the rounding
+    # points are listed in models/precision.py).
     dtype: str = "float32"
     # In the port: run the TPAVI products through the hand-written CUDA
     # kernel (glfusion_tpu_torch/csrc/tpavi_fused.cu), in the cheaper of the
     # two contraction orders. Default False: the reassociated θ(φᵀg)/N order
     # on plain matmuls, equal in real arithmetic.
     use_pallas_fusion: bool = False
-    # Rematerialize backbone stages (not yet ported).
+    # Rematerialize the backbone's bottlenecks (torch.utils.checkpoint), in
+    # every stage or in those remat_stages marks.
     remat: bool = False
     remat_stages: Sequence[bool] | None = None
 
@@ -108,8 +110,9 @@ class OptConfig:
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """Training loop (the trainer is not yet ported; the fields are kept so
-    one configuration describes both packages)."""
+    """Training loop. The port takes cycle_light, fuse_passes, grad_accum and
+    remat_supervised; temporal, CPS, checkify and the mesh fields are kept
+    so one configuration describes both packages."""
 
     batch_size: int = 8
     num_epochs: int = 100

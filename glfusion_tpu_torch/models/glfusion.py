@@ -22,6 +22,17 @@ the SAME initial weights: one view's stem, stages and heads are built and
 At the public interface the layouts are the JAX ones: input (V, B, H, W, 1),
 ``mask``/``mask_bb`` (V, B, H, W, classes), ``f4_global``/``f4_local``
 (V, B, h, w, C). Inside, the convolutions run in NCHW.
+
+``cfg.dtype`` is the compute type of every layer (``models/precision.py``;
+parameters stay float32), the outputs are in it; ``cfg.remat`` and
+``cfg.remat_stages`` remat the backbone's bottlenecks
+(``models/resnet.py``). The cycle pass's two training forms follow JAX
+(``config.TrainConfig``): ``features_only`` computes only ``f4_global``
+(backbone and global attention), so the skipped heads' BN statistics do
+not move on cycle frames; ``sup_count`` runs the backbone and the global
+attention once over the supervised frames and the clip concatenated, BN
+moments over the merged batch, and the heads and the local attention on
+the supervised frames only.
 """
 
 from __future__ import annotations
@@ -34,7 +45,9 @@ import torch.nn as nn
 
 from glfusion_tpu_torch.config import ModelConfig
 from glfusion_tpu_torch.models.aspp import DeepLabHead
-from glfusion_tpu_torch.models.resnet import iekd_stem, make_stages
+from glfusion_tpu_torch.models.precision import cast, compute_dtype
+from glfusion_tpu_torch.models.resnet import (iekd_stem, make_stages,
+                                              remat_mask)
 from glfusion_tpu_torch.models.tpavi import TPAVI
 from glfusion_tpu_torch.ops.resize import resize_bilinear_nchw
 
@@ -47,11 +60,6 @@ def _check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"variant {cfg.variant!r}: the other flagship variants are "
             "ROADMAP M11")
-    if cfg.dtype != "float32":
-        raise NotImplementedError(
-            f"dtype {cfg.dtype!r}: bfloat16 compute is ROADMAP M10")
-    if cfg.remat or cfg.remat_stages is not None:
-        raise NotImplementedError("remat is ROADMAP M10")
     if len(cfg.block_sizes) != 4:
         raise ValueError("the reference names four stages, layer1..layer4")
 
@@ -61,6 +69,7 @@ class GlobalAndLocal(nn.Module):
         super().__init__()
         _check_supported(cfg)
         self.cfg = cfg
+        self.dtype = dt = compute_dtype(cfg.dtype)
         c = cfg.backbone_out_channels
         self.init_block = nn.ModuleDict()
         self.layer1 = nn.ModuleDict()
@@ -69,25 +78,28 @@ class GlobalAndLocal(nn.Module):
         self.layer4 = nn.ModuleDict()
         self.classifier = nn.ModuleDict()
         self.centerness = nn.ModuleDict()
-        first = nn.ModuleDict({"init_block": iekd_stem(cfg.stem_width)})
-        stages = make_stages(cfg.stem_width, cfg.block_sizes, cfg.widths,
-                             cfg.expansion, cfg.dilate_stages)
+        first = nn.ModuleDict({"init_block": iekd_stem(cfg.stem_width, dt)})
+        stages = make_stages(
+            cfg.stem_width, cfg.block_sizes, cfg.widths, cfg.expansion,
+            cfg.dilate_stages, dt,
+            remat_mask(len(cfg.block_sizes), cfg.remat, cfg.remat_stages))
         for s, stage in enumerate(stages, 1):
             first[f"layer{s}"] = stage
         for name, outs in (("classifier", cfg.num_classes),
                            ("centerness", 1)):
             first[name] = DeepLabHead(c, outs, cfg.aspp_channels,
-                                      cfg.aspp_rates, cfg.aspp_dropout)
+                                      cfg.aspp_rates, cfg.aspp_dropout, dt)
         for i, v in enumerate(cfg.views):
             view = first if i == 0 else copy.deepcopy(first)
             for name, mod in view.items():
                 getattr(self, name)[v] = mod
         impl = "pallas" if cfg.use_pallas_fusion else "auto"
-        self.global_attn = TPAVI(c, cfg.tpavi_inter_channels, impl)
-        self.local_attn = TPAVI(c, cfg.tpavi_inter_channels, impl)
+        self.global_attn = TPAVI(c, cfg.tpavi_inter_channels, impl, dt)
+        self.local_attn = TPAVI(c, cfg.tpavi_inter_channels, impl, dt)
 
     def _backbone(self, v: str, x: torch.Tensor) -> torch.Tensor:
-        x = self.init_block[v](x)
+        # the fused stem takes x in the compute type (its weights float32)
+        x = self.init_block[v](cast(x, self.dtype))
         for s in range(1, 5):
             x = getattr(self, f"layer{s}")[v](x)
         return x
@@ -102,18 +114,28 @@ class GlobalAndLocal(nn.Module):
                 sup_count: int | None = None) -> Dict[str, torch.Tensor]:
         """x: (V, B, H, W, 1) stacked views → dict of stacked outputs.
 
-        Train or eval follows ``self.training``. ``is_video``,
-        ``features_only`` and ``sup_count`` (the temporal, cycle-light and
-        fused-pass training options) are ROADMAP M10.
+        Train or eval follows ``self.training``. ``features_only``: only
+        ``{"f4_global"}``, the backbone and the global attention.
+        ``sup_count``: x is the supervised batch (its first ``sup_count``
+        frames) and the cycle clip concatenated on axis 1; ``mask``,
+        ``mask_bb`` and ``f4_local`` cover the supervised frames,
+        ``f4_global`` the clip's. ``is_video`` (the temporal option) is
+        ROADMAP Queue 1.
         """
-        if is_video or features_only or sup_count is not None:
-            raise NotImplementedError(
-                "is_video / features_only / sup_count are ROADMAP M10")
+        if is_video:
+            raise NotImplementedError("is_video (temporal) is ROADMAP Queue 1")
         cfg = self.cfg
         views = list(cfg.views)
-        v_n, _, hh, ww, _ = x.shape
+        v_n, b_n, hh, ww, _ = x.shape
         if v_n != len(views):
             raise ValueError(f"input has {v_n} views, the model {len(views)}")
+        if sup_count is not None:
+            if features_only:
+                raise ValueError("sup_count is exclusive of features_only/"
+                                 "is_video")
+            if not 0 < sup_count < b_n:
+                raise ValueError(f"sup_count={sup_count} must split the "
+                                 f"batch axis ({b_n})")
 
         # (B, 1, H, W) with standard NCHW strides. A permuted view would
         # carry channels-last strides on its size-1 channel axis, and the
@@ -121,6 +143,16 @@ class GlobalAndLocal(nn.Module):
         # dilated kernels are far slower (chip_smoke.py profile).
         f4 = [self._backbone(v, x[i, ..., 0].unsqueeze(1))
               for i, v in enumerate(views)]
+        if features_only:
+            return {"f4_global": self._attend(self.global_attn,
+                                              f4).transpose(0, 1)}
+        glob = cycle = None
+        if sup_count is not None:
+            # the global attention over the merged batch, then the tail
+            # on the supervised frames only
+            both = self._attend(self.global_attn, f4)
+            glob, cycle = both[:sup_count], both[sup_count:]
+            f4 = [f[:sup_count] for f in f4]
 
         cls_f4, f4_local_in = [], []
         for i, v in enumerate(views):
@@ -131,7 +163,8 @@ class GlobalAndLocal(nn.Module):
             atten = torch.sigmoid(cfg.center_aware_weight * m_cls * m_ctr)
             f4_local_in.append(f4[i] * atten)
         local = self._attend(self.local_attn, f4_local_in)
-        glob = self._attend(self.global_attn, f4)
+        if glob is None:
+            glob = self._attend(self.global_attn, f4)
 
         masks, masks_bb = [], []
         for i, v in enumerate(views):
@@ -150,6 +183,6 @@ class GlobalAndLocal(nn.Module):
         return {
             "mask": torch.stack(masks).permute(0, 1, 3, 4, 2),
             "mask_bb": torch.stack(masks_bb).permute(0, 1, 3, 4, 2),
-            "f4_global": glob.transpose(0, 1),
+            "f4_global": (glob if cycle is None else cycle).transpose(0, 1),
             "f4_local": local.transpose(0, 1),
         }

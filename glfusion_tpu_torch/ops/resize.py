@@ -25,7 +25,14 @@ def _nearest_indices_np(out_size: int, in_size: int) -> np.ndarray:
 
 def resize_bilinear_nchw(x: torch.Tensor, out_hw: tuple[int, int]
                          ) -> torch.Tensor:
-    """Bilinear, align_corners=False, no antialias, on (N, C, H, W)."""
+    """Bilinear, align_corners=False, no antialias, on (N, C, H, W).
+
+    In bfloat16 the height is resized first and rounded to bfloat16, then
+    the width, as ``jax.image.resize`` contracts one axis at a time (the
+    width pass at the same size is exactly the identity)."""
+    if x.dtype == torch.bfloat16:
+        x = F.interpolate(x, size=(out_hw[0], x.shape[-1]), mode="bilinear",
+                          align_corners=False, antialias=False)
     return F.interpolate(x, size=tuple(out_hw), mode="bilinear",
                          align_corners=False, antialias=False)
 

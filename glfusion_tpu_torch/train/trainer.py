@@ -113,8 +113,10 @@ class Trainer:
 
         self.model = (model if model is not None
                       else GlobalAndLocal(cfg.model)).to(self.device)
+        # one update takes batch_size·grad_accum frames a view
+        self.update_frames = cfg.train.batch_size * cfg.train.grad_accum
         self.steps_per_epoch = max(
-            len(self.train_loader) // cfg.train.batch_size, 1)
+            len(self.train_loader) // self.update_frames, 1)
         self.optimizer = make_optimizer(cfg, self.model.parameters())
         self.scheduler = make_scheduler(cfg, self.optimizer)
         self.train_step = make_train_step(cfg, self.model, self.optimizer)
@@ -225,11 +227,10 @@ class Trainer:
         return batch
 
     def _train_epoch(self, epoch: int) -> Dict[str, float]:
-        cfg = self.cfg
         cycle_iter = self._cycle_clips(epoch)
         agg, steps = None, 0
         for host_batch in prefetch(
-                self.train_loader.batches(cfg.train.batch_size, epoch)):
+                self.train_loader.batches(self.update_frames, epoch)):
             metrics = self.train_step(self.train_batch(host_batch,
                                                        cycle_iter),
                                       self.generator)

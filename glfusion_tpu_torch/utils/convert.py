@@ -75,21 +75,29 @@ def backbone_state_dict(p: Tree, s: Tree,
     return sd
 
 
+def aspp_state_dict(p: Tree, s: Tree,
+                    num_rates: int) -> Dict[str, torch.Tensor]:
+    """JAX ``ASPP`` variables → ``models.aspp.ASPP`` names (either of its
+    forms: the parameter paths and shapes are the same)."""
+    sd: Dict[str, torch.Tensor] = {}
+    _conv(sd, "convs.0.0", p["b0_conv"])
+    _bn(sd, "convs.0.1", p["b0_bn"], s["b0_bn"])
+    for i in range(1, num_rates + 1):
+        _conv(sd, f"convs.{i}.0", p[f"b{i}_conv"])
+        _bn(sd, f"convs.{i}.1", p[f"b{i}_bn"], s[f"b{i}_bn"])
+    n = num_rates + 1
+    _conv(sd, f"convs.{n}.1", p["pool_conv"])
+    _bn(sd, f"convs.{n}.2", p["pool_bn"], s["pool_bn"])
+    _conv(sd, "project.0", p["project_conv"])
+    _bn(sd, "project.1", p["project_bn"], s["project_bn"])
+    return sd
+
+
 def head_state_dict(p: Tree, s: Tree,
                     num_rates: int) -> Dict[str, torch.Tensor]:
     """JAX ``DeepLabHead`` variables → ``models.aspp.DeepLabHead`` names."""
-    sd: Dict[str, torch.Tensor] = {}
-    ap, as_ = p["aspp"], s["aspp"]
-    _conv(sd, "0.convs.0.0", ap["b0_conv"])
-    _bn(sd, "0.convs.0.1", ap["b0_bn"], as_["b0_bn"])
-    for i in range(1, num_rates + 1):
-        _conv(sd, f"0.convs.{i}.0", ap[f"b{i}_conv"])
-        _bn(sd, f"0.convs.{i}.1", ap[f"b{i}_bn"], as_[f"b{i}_bn"])
-    n = num_rates + 1
-    _conv(sd, f"0.convs.{n}.1", ap["pool_conv"])
-    _bn(sd, f"0.convs.{n}.2", ap["pool_bn"], as_["pool_bn"])
-    _conv(sd, "0.project.0", ap["project_conv"])
-    _bn(sd, "0.project.1", ap["project_bn"], as_["project_bn"])
+    sd = {f"0.{k}": t for k, t in aspp_state_dict(
+        p["aspp"], s["aspp"], num_rates).items()}
     _conv(sd, "1", p["conv"])
     _bn(sd, "2", p["bn"], s["bn"])
     _conv(sd, "4", p["out_conv"], bias=True)

@@ -33,6 +33,12 @@ TINY_MODEL = dict(
 # float32 parity tolerance (tests/test_full_model_torch_parity.py:67-72)
 TOL = dict(atol=2e-4, rtol=2e-4)
 
+# XLA:CPU options for the JAX side's jitted references: no LLVM
+# optimization, which halves their compile time (the tests' own cost with a
+# cold compilation cache); the arithmetic is the same operations.
+FAST_COMPILE = {"xla_backend_optimization_level": 0,
+                "xla_llvm_disable_expensive_passes": True}
+
 
 @pytest.fixture(scope="module", autouse=True)
 def one_torch_thread():
