@@ -56,6 +56,15 @@ nonzero:
           ``fuse_passes``): launch counts, finite losses, s/step, peak
           memory; a profiled plain step and one step held against the plain
           versions at a bfloat16 tolerance.
+  lifecycle  the training lifecycle and the output modes on the float32
+          flagship with the kernels: U trains 2 epochs, three reruns the
+          same again (the noise yardstick), S is stopped in epoch 0 and R resumes it in
+          a fresh ``Trainer``; R's seeds, crops and cycle draws equal U's,
+          and R's weights lie within ``resume_agreement`` of U's, which a
+          resume with Adam's moments zeroed must fail; the sweep over U's
+          epochs, ``--torch-ckpt`` on U's last file, infer, visual and
+          serve on R's weights; checkpoint size, save, load and sweep
+          times, clips/s and the disk's peak.
 
 The last lines are the kernels' record, the card's ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``. Without CUDA, or outside a checkout, it
@@ -64,9 +73,12 @@ exits nonzero and prints no result.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
+import gc
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -137,6 +149,21 @@ ASPP_TOL = {"float32": {"out": 1e-4, "grad": 1e-2},
 # each form of the cycle pass, one epoch each on the train phase's corpus
 BF16_VARIANTS = (("plain", {}), ("cycle_light", {"cycle_light": True}),
                  ("fuse_passes", {"fuse_passes": True}))
+# lifecycle: each tensor of the resumed run R within 10× the largest of
+# its reruns' relative-norm differences from the uninterrupted run U, + this
+# floor; bitwise where every rerun is. A rerun (U′) is U again: cuDNN's
+# choices and atomics in PyTorch's own CUDA backward ops make two runs
+# differ. Three reruns, because a tensor of one element (each view's
+# centerness bias) has one noise draw a rerun: for Gaussian noise the
+# ratio of two such draws exceeds 10 in 6.3 % of runs, R's against the
+# largest of three in 0.08 % (PERF.md section 6; measured: against each of
+# one run's three reruns alone R's worst ratio read 2.55, 0.56 and 0.27,
+# against the largest 0.16). The restore itself is checked bit for bit
+# (``state_diff``)
+RESUME_NOISE, RESUME_FLOOR, RESUME_RERUNS = 10, 1e-6, 3
+# infer against serve: a voxel's mask may differ only where the clip's
+# logit there lies this close to the threshold 0
+MASK_FLIP_LOGIT = 1e-3
 
 
 def emit(phase: str, **fields) -> None:
@@ -873,7 +900,8 @@ def step_agreement(torch, cfg, trainer, batch, tol=STEP_TOL) -> dict:
     """One train step through the kernels (fused stems, TPAVI kernel)
     against the same step through the plain versions (the fused stems'
     plain versions on cuDNN, the naive attention chain): same weights,
-    batch, dropout seed and generator state, SGD at lr 0 so the weights stay
+    batch, dropout seed and generator (``Trainer.step_randomness``), SGD at
+    lr 0 so the weights stay
     and the gradients are compared. Both TPAVI W_z BNs get a nonzero scale
     first (at their zero init no gradient reaches θ, φ, g).
 
@@ -904,7 +932,6 @@ def step_agreement(torch, cfg, trainer, batch, tol=STEP_TOL) -> dict:
         for attn in (model_k.global_attn, model_k.local_attn):
             attn.W_z[1].weight.uniform_(0.5, 1.0)
     state = {k: v.clone() for k, v in model_k.state_dict().items()}
-    gen_state = trainer.generator.get_state()
 
     def run(model, impl):
         for attn in (model.global_attn, model.local_attn):
@@ -912,9 +939,9 @@ def step_agreement(torch, cfg, trainer, batch, tol=STEP_TOL) -> dict:
         model.zero_grad(set_to_none=True)
         step = make_train_step(cfg, model,
                                torch.optim.SGD(model.parameters(), lr=0.0))
-        torch.manual_seed(7)
-        trainer.generator.set_state(gen_state)
-        metrics = step(batch, trainer.generator)
+        # the same step's generator and dropout seed for every path
+        with trainer.step_randomness(1, 0) as gen:
+            metrics = step(batch, gen)
         torch.cuda.synchronize()
         return {k: float(v.sum()) for k, v in metrics.items()}, _grads(model)
 
@@ -1077,9 +1104,10 @@ def train_phase(torch) -> dict:
 
     # ---- one more step profiled, then kernels against the plain versions
     host = next(trainer.train_loader.batches(cfg.train.batch_size, 1))
-    batch = trainer.train_batch(host, trainer._cycle_clips(1))
-    prof = profile_phase(torch, lambda: inner(batch, trainer.generator),
-                         "train_profile")
+    with trainer.step_randomness(1, 0) as gen:
+        batch = trainer.train_batch(host, trainer._cycle_clips(1), gen)
+        prof = profile_phase(torch, lambda: inner(batch, gen),
+                             "train_profile")
     agreement = step_agreement(torch, cfg, trainer, batch)
     warm = step_s[1:] or step_s
     rec = dict(
@@ -1256,16 +1284,407 @@ def train_bf16_phase(torch, data_paths) -> dict:
         if name == "plain":
             host = next(trainer.train_loader.batches(cfg.train.batch_size,
                                                      1))
-            batch = trainer.train_batch(host, trainer._cycle_clips(1))
-            prof = profile_phase(torch, lambda: inner(batch,
-                                                      trainer.generator),
-                                 "train_bf16_profile")
+            with trainer.step_randomness(1, 0) as gen:
+                batch = trainer.train_batch(host, trainer._cycle_clips(1),
+                                            gen)
+                prof = profile_phase(torch, lambda: inner(batch, gen),
+                                     "train_bf16_profile")
             rec["step_idle_share"] = prof["idle_share"]
             rec["step_agreement"] = step_agreement(torch, cfg, trainer, batch,
                                                    STEP_TOL_BF16)
         emit("train_bf16", dtype="bfloat16", remat=True, **rec)
         del trainer
     return {k: sum(c[k] for c in counts.values()) for k in counts["plain"]}
+
+
+def _du(path: Path) -> int:
+    return sum(p.stat().st_size for p in path.rglob("*") if p.is_file())
+
+
+def resume_agreement(torch, u, reruns, r) -> dict:
+    """Every tensor of r against u, allowed RESUME_NOISE × the largest of
+    the reruns' own differences from u + RESUME_FLOOR in relative norm, and
+    bitwise where every rerun is bitwise u. Returns the verdict, the worst
+    ratios with (elements, r's error, the reruns' noise), and the noise's
+    quantiles over the tensors."""
+    def rel(a, ref64):
+        return ((a.double() - ref64).norm()
+                / ref64.norm().clamp_min(1e-30)).item()
+
+    ratio, bad, errs = {}, [], {}
+    for k, ref in u.items():
+        ref64 = ref.double()
+        e_r = rel(r[k], ref64)
+        noise = max(rel(x[k], ref64) for x in reruns)
+        allow = RESUME_NOISE * noise + RESUME_FLOOR
+        ratio[k], errs[k] = e_r / allow, (ref.numel(), e_r, noise)
+        exact = all(torch.equal(x[k], ref) for x in reruns)
+        if (exact and not torch.equal(r[k], ref)) or not e_r <= allow:
+            bad.append((k, e_r, noise))
+    worst = sorted(ratio, key=ratio.get, reverse=True)[:8]
+    noise = sorted(e for _, _, e in errs.values() if e > 0)
+    return {"ok": not bad, "bad": bad[:5], "n_bad": len(bad),
+            "worst_ratio": ratio[worst[0]], "worst_tensor": worst[0],
+            "worst": [(k, *errs[k], ratio[k]) for k in worst],
+            "noise_quantiles": [noise[int(q * (len(noise) - 1))]
+                                for q in (0, 0.1, 0.5, 0.9, 1) if noise],
+            "tensors": len(ratio),
+            "bitwise_reruns": sum(all(torch.equal(x[k], u[k])
+                                      for x in reruns) for k in u),
+            "bitwise_r": sum(torch.equal(r[k], u[k]) for k in u)}
+
+
+def state_diff(torch, a, b, path: str = "") -> list:
+    """The paths at which two nested states differ: tensors by dtype,
+    shape and bits, anything else by ``==``."""
+    if isinstance(a, torch.Tensor):
+        same = isinstance(b, torch.Tensor) and same_bits(torch, a,
+                                                         b.to(a.device))
+        return [] if same else [path]
+    if isinstance(a, dict):
+        if not isinstance(b, dict) or set(a) != set(b):
+            return [path]
+        return [d for k in a for d in state_diff(torch, a[k], b[k],
+                                                 f"{path}/{k}")]
+    if isinstance(a, (list, tuple)):
+        if not isinstance(b, (list, tuple)) or len(a) != len(b):
+            return [path]
+        return [d for i, (x, y) in enumerate(zip(a, b))
+                for d in state_diff(torch, x, y, f"{path}/{i}")]
+    return [] if a == b else [path]
+
+
+def _leaves(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_leaves(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_leaves(v) for v in tree)
+    return 1
+
+
+def _by_part(paths) -> dict:
+    """Differing paths counted by their top-level part."""
+    out = {}
+    for p in paths:
+        part = p.split("/")[1]
+        out[part] = out.get(part, 0) + 1
+    return out
+
+
+def lifecycle_phase(torch, data_paths) -> dict:
+    """The training lifecycle and the output modes on the full-width
+    flagship (float32, TF32 off, K1 and a ``FusedIEKDStem`` in every view):
+    U trains 2 epochs; U′, U″, U‴ again (the noise yardstick); S is
+    stopped in epoch 0 (``request_stop``) and R resumes it from its
+    checkpoint in a fresh ``Trainer`` to epoch 2. R's restored state must
+    be S's bit for bit (``state_diff``), and R's end state lie within
+    ``resume_agreement`` of U's. Negative controls: a weights-only restore
+    (the reference's file alone) and a restore with the schedule's epoch
+    reset must fail the restore check, and a restore with Adam's moments
+    zeroed the end-state check. Then the sweep over U's epochs,
+    ``--torch-ckpt`` on U's last file, infer, visual and serve on R's
+    weights. The checkpoints (up to 4.4 GB) are removed also when a check
+    fails."""
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_lifecycle_"))
+    try:
+        return _lifecycle(torch, data_paths, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _lifecycle(torch, data_paths, tmp: Path) -> dict:
+    import numpy as np
+
+    from glfusion_tpu_torch.config import Config
+    from glfusion_tpu_torch.data.nifti import read_nifti_py
+    from glfusion_tpu_torch.experiments import stem_fused
+    from glfusion_tpu_torch.experiments.stem_module import swap_in_fused_stems
+    from glfusion_tpu_torch.models import GlobalAndLocal
+    from glfusion_tpu_torch.ops.tpavi_fused import fused_dot_nonlocal
+    from glfusion_tpu_torch.serve import serve_test_clips
+    from glfusion_tpu_torch.train.train_state import (make_scheduler,
+                                                      state_payload)
+    from glfusion_tpu_torch.train.trainer import Trainer
+
+    kernels = stem_fused.KERNELS
+    base = Config()
+    base = base.replace(
+        model=dataclasses.replace(base.model, use_pallas_fusion=True),
+        data=dataclasses.replace(base.data,
+                                 synthetic_num_patients=TRAIN_PATIENTS,
+                                 train_repeat=TRAIN_REPEAT),
+        train=dataclasses.replace(base.train, num_epochs=2,
+                                  eval_every_epochs=0))
+    torch.manual_seed(0)
+    model = GlobalAndLocal(base.model)
+    swap_in_fused_stems(model)
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    disk = [0]
+
+    def make(tag, save_every):
+        model.load_state_dict(init)
+        cfg = base.replace(train=dataclasses.replace(
+            base.train, save_every_epochs=save_every,
+            save_dir=str(tmp / tag / "ckpt"), log_dir=str(tmp / tag / "log")))
+        tr = Trainer(cfg, data_paths=data_paths, model=model, verbose=False)
+        tr.draws = []
+        inner = tr.train_step
+
+        def step(batch, gen):
+            # the step's seed, its crops and its next (cycle) draw
+            probe = torch.Generator(device="cuda")
+            probe.set_state(gen.get_state())
+            tr.draws.append({
+                "epoch": tr.epoch, "seed": gen.initial_seed(),
+                "images": batch["images"].clone(),
+                "next_draw": torch.rand((), device="cuda",
+                                        generator=probe).item(),
+                "lr": tr.optimizer.param_groups[0]["lr"]})
+            return inner(batch, gen)
+
+        tr.train_step = step
+        return tr
+
+    def weights():
+        return {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+    def free():
+        # a Trainer and its step wrapper refer to each other: collect the
+        # cycle, so its Adam state leaves the card
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    for k in kernels:
+        k.launches = 0
+    fused_dot_nonlocal.launches = 0
+    t_phase = time.perf_counter()
+
+    # ---- U: 2 epochs, a checkpoint each
+    tr = make("U", 1)
+    t0 = time.perf_counter()
+    tr.train()
+    u_train_s = time.perf_counter() - t0
+    u, u_draws, saves = weights(), tr.draws, list(tr.ckpt.saves)
+    check([s["epoch"] for s in saves] == [0, 1], f"U saved {saves}")
+    disk[0] = max(disk[0], _du(tmp))
+    clip = next(tr.eval_clips(sorted(tr.test_infos)[:1]))
+    clip_batch = {"images": tr._to_device(clip["images"]),
+                  "masks": tr._to_device(clip["masks"])}
+    u_logits = tr.eval_step(clip_batch)["logits"].clone()
+
+    # ---- the sweep over U's epochs, then U's state is put back
+    val = {}
+    validate = tr.validation_and_test
+
+    def recorded():
+        res = validate()
+        val[tr.epoch] = float(np.mean([v["dice"] for v in
+                                       res["Inner-val"]["views"].values()]))
+        return res
+
+    tr.validation_and_test = recorded
+    t0 = time.perf_counter()
+    best = tr.sweep_checkpoints()
+    sweep_s = time.perf_counter() - t0
+    check(sorted(val) == [0, 1] and best["epoch"] == max(val, key=val.get),
+          f"sweep picked {best['epoch']} of {val}")
+    check(tr.epoch == 2 and all(torch.equal(v, u[k]) for k, v in
+                                model.state_dict().items()),
+          "the sweep did not put U's state back")
+
+    # ---- --torch-ckpt on U's last net file gives U's logits
+    model.load_state_dict(init)
+    tr.load_torch_checkpoint(str(tr.checkpoint_path(1)))
+    ck_logits = tr.eval_step(clip_batch)["logits"]
+    torch_ckpt_err = rel_max(ck_logits, u_logits)
+    check(torch_ckpt_err <= 1e-6, f"--torch-ckpt logits {torch_ckpt_err}")
+    del tr
+    free()
+    shutil.rmtree(tmp / "U")
+
+    # ---- U′, U″, U‴: the same 2 epochs again, the noise yardstick
+    reruns = []
+    for i in range(RESUME_RERUNS):
+        tr = make(f"U{i + 2}", 0)
+        tr.train()
+        reruns.append(weights())
+        del tr
+        free()
+
+    # ---- S: asked to stop in epoch 0; only the stop writes a checkpoint
+    tr = make("S", 100)
+    inner_s = tr.train_step
+
+    def stop_in_epoch_0(batch, gen):
+        tr.request_stop()
+        return inner_s(batch, gen)
+
+    tr.train_step = stop_in_epoch_0
+    tr.train()
+    check(tr.epoch == 1 and tr.ckpt.all_steps() == [0],
+          f"stop: epoch {tr.epoch}, saved {tr.ckpt.all_steps()}")
+    stop_save = tr.ckpt.saves[0]
+    steps0 = len(tr.draws)
+    disk[0] = max(disk[0], _du(tmp))
+    s_state = copy.deepcopy(state_payload(model, tr.optimizer, tr.scheduler))
+    del tr
+    free()
+
+    def restored_diff(tr):
+        return state_diff(torch, s_state, state_payload(
+            model, tr.optimizer, tr.scheduler))
+
+    def lr_diff(tr):
+        return tr.optimizer.param_groups[0]["lr"] != u_lr1[0]
+
+    u_lr1 = [d["lr"] for d in u_draws if d["epoch"] == 1]
+
+    # ---- R: a fresh Trainer resumes S and trains to epoch 2
+    tr = make("S", 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    check(tr.load_latest(), "R found no checkpoint")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    # weights, BN buffers, Adam's moments and steps, the schedule: S's bits
+    restore = restored_diff(tr)
+    check(not restore, f"R's restored state differs from S's at "
+          f"{len(restore)} paths: {restore[:5]}")
+    adam_steps = {int(st["step"]) for st in tr.optimizer.state.values()}
+    check(tr.epoch == 1 and adam_steps == {steps0} and not lr_diff(tr),
+          f"restored epoch {tr.epoch}, Adam steps {adam_steps}, lr "
+          f"{tr.optimizer.param_groups[0]['lr']} (U: {u_lr1[0]})")
+    tr.train()
+    r = weights()
+    u_ep1 = [d for d in u_draws if d["epoch"] == 1]
+    check(len(u_ep1) == len(tr.draws) > 0 and all(
+        a["seed"] == b["seed"] and a["next_draw"] == b["next_draw"]
+        and a["lr"] == b["lr"] and torch.equal(a["images"], b["images"])
+        for a, b in zip(u_ep1, tr.draws)),
+        "epoch 1's seeds, crops or cycle draws differ between U and R")
+    agreement = resume_agreement(torch, u, reruns, r)
+    check(agreement["ok"], f"resume check: {agreement}")
+    # the same check against each rerun alone (not a verdict)
+    single = [resume_agreement(torch, u, [x], r)["worst_ratio"]
+              for x in reruns]
+
+    # ---- outputs on R's weights: infer, visual, serve
+    n_clips, views = len(tr.test_infos), len(base.model.views)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n_infer = tr.infer(str(tmp / "infer"))
+    torch.cuda.synchronize()
+    infer_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    n_png = tr.test_visualize("chip_smoke", str(tmp / "visual"))
+    visual_s = time.perf_counter() - t0
+    stats = serve_test_clips(tr, out_dir=str(tmp / "serve"), depth=2,
+                             threads=4)
+    infer_files = sorted((tmp / "infer").glob("*.nii.gz"))
+    frames = 0
+    flips, flip_logit_max = 0, 0.0
+    for f in infer_files:
+        a = read_nifti_py(f)
+        b = read_nifti_py(tmp / "serve" / f.name)
+        check(a.dtype == np.uint8 and a.shape == b.shape and a.shape[0] == 5,
+              f"{f.name}: {a.dtype} {a.shape} against {b.shape}")
+        frames += a.shape[-1]
+        differ = a != b
+        if differ.any():
+            cid, view = f.name[len("pred_"):-len(".nii.gz")].rsplit("_v", 1)
+            c = next(tr.eval_clips([cid]))
+            logits = tr.eval_step({
+                "images": tr._to_device(c["images"]),
+                "masks": tr._to_device(c["masks"])})["logits"]
+            lg = logits[base.model.views.index(view)].permute(
+                3, 1, 2, 0).cpu().numpy()
+            flips += int(differ.sum())
+            flip_logit_max = max(flip_logit_max,
+                                 float(np.abs(lg[differ]).max()))
+    pngs = len(list((tmp / "visual").rglob("pred_*.png")))
+    check(n_infer == stats["written"] == len(infer_files) == n_clips * views
+          and stats["clips"] == n_clips,
+          f"infer {n_infer}, serve {stats}, files {len(infer_files)}")
+    check(n_png == pngs == frames, f"{n_png} PNGs, {pngs} files, "
+          f"{frames} frames")
+    check(flip_logit_max < MASK_FLIP_LOGIT,
+          f"infer and serve masks differ at |logit| {flip_logit_max}")
+    disk[0] = max(disk[0], _du(tmp))
+    del tr
+    free()
+
+    # ---- negative controls. Weights only (what the reference's file
+    # holds): the restore check must see Adam's state and the schedule lost
+    tr = make("S", 0)
+    tr.load_torch_checkpoint(str(tr.checkpoint_path(0)))
+    lost = _by_part(restored_diff(tr))
+    check(set(lost) == {"optimizer", "scheduler"} and lr_diff(tr),
+          f"weights-only restore: differing parts {lost}")
+    del tr
+    free()
+
+    # the schedule's epoch reset after the restore: the restore and
+    # learning-rate checks must fail it. Not trained on: its epoch-1
+    # learning rate is 0.1 % off, which the end-state check does not see
+    # (PERF.md section 6)
+    tr = make("S", 0)
+    check(tr.load_latest(), "scheduler control found no checkpoint")
+    tr.scheduler = make_scheduler(tr.cfg, tr.optimizer)  # epoch 0 again
+    sched_lost = _by_part(restored_diff(tr))
+    check("scheduler" in sched_lost and lr_diff(tr),
+          f"schedule reset: differing parts {sched_lost}")
+    del tr
+    free()
+
+    # Adam's moments zeroed after the restore: the end-state check must
+    # fail it
+    tr = make("S", 0)
+    check(tr.load_latest(), "negative control found no checkpoint")
+    for st in tr.optimizer.state.values():
+        st["exp_avg"].zero_()
+        st["exp_avg_sq"].zero_()
+    adam_lost = _by_part(restored_diff(tr))
+    tr.train()
+    control = resume_agreement(torch, u, reruns, weights())
+    check(not control["ok"], "the negative control passed the resume check")
+    launches = {k.__name__: k.launches for k in kernels}
+    launches["fused_dot_nonlocal"] = fused_dot_nonlocal.launches
+    check(all(n > 0 for n in launches.values()),
+          f"lifecycle launches {launches}")
+    del tr
+    free()
+
+    rec = dict(
+        nvidia_smi=nvidia_smi_line(), phase_s=time.perf_counter() - t_phase,
+        u_train_s=u_train_s, steps_per_epoch=steps0,
+        checkpoint_bytes=saves[-1]["bytes"],
+        save_blocking_s=[s["blocking_s"] for s in saves + [stop_save]],
+        save_write_s=[s["write_s"] for s in saves + [stop_save]],
+        load_latest_s=load_s, sweep_s=sweep_s,
+        sweep_s_per_epoch=sweep_s / len(val), sweep_val_dice=val,
+        sweep_best=best["epoch"], torch_ckpt_rel_err=torch_ckpt_err,
+        restore_compared=_leaves(s_state),
+        resume=agreement, resume_single_rerun_worst=single,
+        control_weights_only={"restore_differing": lost},
+        control_scheduler={"restore_differing": sched_lost},
+        negative_control={"restore_differing": adam_lost, **{
+            k: control[k] for k in ("ok", "n_bad", "worst_ratio",
+                                    "worst_tensor", "worst")}},
+        infer_clips_per_s=n_clips / infer_s, infer_s=infer_s,
+        serve_clips_per_s=stats["clips_per_s"], serve_s=stats["wall_s"],
+        visual_s=visual_s, pngs=n_png, mask_flips=flips,
+        mask_flip_logit_max=flip_logit_max, disk_peak_bytes=disk[0],
+        launches=launches)
+    emit("lifecycle", **rec)
+    print(f"lifecycle: restore check: R's state is S's at all "
+          f"{rec['restore_compared']} leaves; the weights-only restore "
+          f"differs at {lost}, the schedule reset at {sched_lost}, both "
+          f"with another learning rate: both failed as they must",
+          flush=True)
+    print(f"lifecycle: negative control (Adam's moments zeroed) failed the "
+          f"resume check as it must: {control['n_bad']} tensors, worst "
+          f"ratio {control['worst_ratio']:.3g}", flush=True)
+    return launches
 
 
 def main() -> None:
@@ -1311,11 +1730,14 @@ def main() -> None:
     train = train_phase(torch)
     torch.cuda.empty_cache()
     bf16 = train_bf16_phase(torch, train["data_paths"])  # launches
+    torch.cuda.empty_cache()
+    life = lifecycle_phase(torch, train["data_paths"])  # launches
 
     main_rec = records[(SERVE_SHAPE, "float32")]
     k1_launches = (serve_launches + train["train"]["fused_dot_nonlocal"]
                    + train["validation"]["fused_dot_nonlocal"]
-                   + bf16["fused_dot_nonlocal"])
+                   + bf16["fused_dot_nonlocal"]
+                   + life["fused_dot_nonlocal"])
     kernels = [{
         "name": "tpavi_fused_dot_nonlocal",
         "route": "cuda",
@@ -1359,7 +1781,7 @@ def main() -> None:
             "source": "glfusion_tpu_torch/csrc/stem_fused.cu",
             "replaces": where,
             "launches": (train["train"][name] + train["validation"][name]
-                         + bf16[name]),
+                         + bf16[name] + life[name]),
             "shape": [stem["batch"], 1, STEM_HW, STEM_HW, STEM_C],
             "dtype": stem["dtype"], "max_abs_err": abs_err[name],
             "ms": stem["ms"][name], "plain_ms": stem["plain_ms"][name],

@@ -1,17 +1,25 @@
 """Command-line entry point of the port: ``python -m glfusion_tpu_torch``.
 
-The port of ``glfusion_tpu/cli.py`` for ``--mode train`` and ``--mode val``
-(reference ``main.py --mode``), with the JAX CLI's flag names. Without
-``--data-root`` a synthetic corpus exercises the full pipeline. It runs on
-the card; ``--platform cpu`` runs on the CPU, and without it a machine with
-no CUDA raises. The visual, infer, serve, export and regression modes are
-ROADMAP M12/M14.
+The port of ``glfusion_tpu/cli.py`` for ``--mode train|val|visual|infer|
+serve`` (reference ``main.py --mode``), with the JAX CLI's flag names and
+guards. Without ``--data-root`` a synthetic corpus exercises the full
+pipeline. It runs on the card; ``--platform cpu`` runs on the CPU, and
+without it a machine with no CUDA raises. SIGTERM stops a training run at
+the next epoch boundary with that epoch checkpointed; ``--resume``
+continues it.
+
+TF32 policy: in float32 the CLI turns TF32 off for cuBLAS and cuDNN, so
+"float32" is IEEE float32, as in the JAX package's tests, on the CPU and in
+every figure measured on the card; bfloat16 leaves PyTorch's settings as
+they are. ``--mode export``, ``--from-export``, the HTTP endpoint and the
+regression modes are ROADMAP Queue 1.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 from pathlib import Path
 
 from glfusion_tpu_torch.config import ALL_VIEWS, Config, tiny_config
@@ -22,9 +30,14 @@ def build_parser() -> argparse.ArgumentParser:
         prog="glfusion_tpu_torch",
         description="GL-Fusion multi-view echocardiogram segmentation "
                     "(PyTorch, one NVIDIA H100)")
-    p.add_argument("--mode", choices=["train", "val"], default="train",
-                   help="train (then validate each epoch) or evaluate the "
-                        "newest checkpoint under --save-dir")
+    p.add_argument("--mode", choices=["train", "val", "visual", "infer",
+                                      "serve"], default="train",
+                   help="train (then validate each epoch); val, visual, "
+                        "infer and serve use the newest checkpoint under "
+                        "--save-dir (or --torch-ckpt): val evaluates, "
+                        "visual writes PNGs, infer writes NIfTI masks, "
+                        "serve writes them through the pipelined "
+                        "ClipPipeline")
     p.add_argument("--data-root", default=None,
                    help="dataset root containing infos/, data_list/, .nii.gz;"
                         " omit to run on synthetic data")
@@ -57,12 +70,42 @@ def build_parser() -> argparse.ArgumentParser:
                         "TrainConfig.grad_accum)")
     p.add_argument("--save-dir", default="./result/ckpt")
     p.add_argument("--log-dir", default="./result/log_info/log_01")
+    p.add_argument("--resume", action="store_true",
+                   help="restore the newest checkpoint (weights, Adam state, "
+                        "schedule) before training")
+    p.add_argument("--torch-ckpt", default=None,
+                   help="load a reference net_XXXXX.pth "
+                        "({'network': state_dict}) instead of a checkpoint "
+                        "under --save-dir")
+    p.add_argument("--imagenet-backbone", default=None,
+                   help="initialize every view's backbone from a LOCAL "
+                        "torchvision resnet50 ImageNet .pth (the reference "
+                        "recipe; the 1-channel stem conv stays random)")
+    p.add_argument("--out-dir", default="./predictions",
+                   help="infer and serve: output directory of the masks")
+    p.add_argument("--method-name", default="glfusion_tpu_torch",
+                   help="visual: output subdirectory (main.py:546)")
+    p.add_argument("--sweep", action="store_true",
+                   help="val: evaluate every saved checkpoint and report "
+                        "the best Inner-val epoch >= 50 (all epochs when "
+                        "none reaches 50)")
+    p.add_argument("--ckpt-keep", type=int, default=None,
+                   help="checkpoints kept on disk (default: all, which the "
+                        "sweep needs)")
+    p.add_argument("--log-histograms", action="store_true",
+                   help="per-parameter TensorBoard histograms each epoch "
+                        "(one copy of every parameter to the host)")
+    p.add_argument("--serve-depth", type=int, default=2,
+                   help="serve: clips in flight on the card")
+    p.add_argument("--serve-threads", type=int, default=None,
+                   help="serve: host NIfTI decode workers (default "
+                        "min(4, cpu_count))")
     p.add_argument("--tiny", action="store_true",
                    help="miniature topology and corpus for smoke runs")
     p.add_argument("--dtype", default=None, choices=["float32", "bfloat16"],
                    help="compute dtype (params stay f32). The reference is "
                         "f32; bfloat16 halves activation memory. float32 "
-                        "convolutions inherit PyTorch's cuDNN TF32 default")
+                        "runs with TF32 off for matmuls and convolutions")
     p.add_argument("--remat", action="store_true",
                    help="rematerialize backbone blocks (saves activation "
                         "memory at ~30%% extra FLOPs)")
@@ -112,6 +155,8 @@ def config_from_args(args: argparse.Namespace) -> Config:
             test_views=views,
             eval_every_epochs=args.eval_every,
             save_every_epochs=args.save_every,
+            ckpt_keep=args.ckpt_keep,
+            log_histograms=args.log_histograms,
         ),
     )
 
@@ -131,23 +176,83 @@ def data_paths_from_root(root: str, cfg: Config) -> dict:
     return paths
 
 
+def apply_tf32_policy(cfg: Config) -> None:
+    """float32 is IEEE float32: TF32 off for cuBLAS and cuDNN. bfloat16
+    leaves PyTorch's settings as they are."""
+    if cfg.model.dtype == "float32":
+        import torch
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+
+
+def _train(trainer) -> None:
+    """Train; on the main thread SIGTERM asks for a stop at the epoch
+    boundary (the in-flight epoch is checkpointed, the process exits 0)."""
+    import signal
+    import threading
+
+    if threading.current_thread() is not threading.main_thread():
+        trainer.train()  # signal.signal is main-thread only
+        return
+    prev = signal.signal(signal.SIGTERM,
+                         lambda signum, frame: trainer.request_stop())
+    try:
+        trainer.train()
+    finally:
+        signal.signal(signal.SIGTERM, prev)
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     cfg = config_from_args(args)
+    apply_tf32_policy(cfg)
     data_paths = (None if args.data_root is None
                   else data_paths_from_root(args.data_root, cfg))
+    if args.imagenet_backbone is not None and args.torch_ckpt is not None:
+        raise SystemExit("error: --imagenet-backbone is an initialization; "
+                         "--torch-ckpt loads a full checkpoint — pick one")
 
     from glfusion_tpu_torch.train.trainer import Trainer
 
     trainer = Trainer(cfg, data_paths=data_paths, device=args.platform)
+    if args.imagenet_backbone is not None:
+        trainer.load_imagenet_backbone(args.imagenet_backbone)
+    restored = False
+    if args.torch_ckpt is not None:
+        trainer.load_torch_checkpoint(args.torch_ckpt)
+        restored = True
+    elif args.resume or args.mode != "train":
+        restored = trainer.load_latest()
+    if args.mode in ("val", "serve") and not restored:
+        # a served endpoint or a score on random-init weights is never
+        # what the caller wants
+        raise SystemExit(
+            f"error: --mode {args.mode} found no weights (no checkpoint "
+            f"under {cfg.train.save_dir}, no --torch-ckpt); train first")
+
     if args.mode == "train":
-        trainer.train()
-    else:
-        if not trainer.load_latest():
-            raise SystemExit(
-                f"error: --mode val found no net_*.pth under "
-                f"{cfg.train.save_dir}; train first")
-        trainer.validation_and_test()
+        _train(trainer)
+    elif args.mode == "val":
+        if args.sweep:
+            trainer.sweep_checkpoints()
+        else:
+            trainer.validation_and_test()
+    elif args.mode == "visual":
+        n = trainer.test_visualize(method_name=args.method_name)
+        print(f"wrote {n} prediction frames")
+    elif args.mode == "infer":
+        n = trainer.infer(out_dir=args.out_dir)
+        print(f"wrote {n} prediction volumes")
+    else:  # serve
+        from glfusion_tpu_torch.serve import serve_test_clips
+
+        stats = serve_test_clips(
+            trainer, out_dir=args.out_dir, depth=args.serve_depth,
+            threads=args.serve_threads or min(4, os.cpu_count() or 1))
+        print(f"served {stats['clips']} clips ({stats['clips_per_s']} "
+              f"clips/s, {stats['wall_s']} s): wrote {stats['written']} "
+              f"prediction volumes")
     return 0
 
 

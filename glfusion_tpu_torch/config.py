@@ -110,9 +110,10 @@ class OptConfig:
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """Training loop. The port takes cycle_light, fuse_passes, grad_accum and
-    remat_supervised; temporal, CPS, checkify and the mesh fields are kept
-    so one configuration describes both packages."""
+    """Training loop. The port takes cycle_light, fuse_passes, grad_accum,
+    remat_supervised, ckpt_keep and log_histograms; temporal, CPS, checkify
+    and the mesh fields are kept so one configuration describes both
+    packages."""
 
     batch_size: int = 8
     num_epochs: int = 100

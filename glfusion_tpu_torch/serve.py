@@ -10,13 +10,16 @@ The port of ``glfusion_tpu/serve.py::ClipPipeline``. Three stages overlap:
       marks the copy's end and the clip is yielded once it has completed)
 
 Every clip is padded or trimmed on the host to ``clip_length`` frames, the
-JAX contract; the true frame count trims the yielded prediction. The AOT
-export arguments of the JAX pipeline are ROADMAP M12.
+JAX contract; the true frame count trims the yielded prediction.
+``serve_test_clips`` is ``--mode serve``: ``Trainer.infer``'s outputs
+through the pipeline. The AOT export arguments of the JAX pipeline
+(``from_export``) are ROADMAP Queue 1.
 """
 
 from __future__ import annotations
 
 import collections
+import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Callable, Dict, Iterable, Iterator, Sequence, Tuple
 
@@ -24,7 +27,7 @@ import numpy as np
 import torch
 
 from glfusion_tpu_torch.config import Config
-from glfusion_tpu_torch.data.nifti import read_nifti_py
+from glfusion_tpu_torch.data.nifti import read_nifti_py, write_nifti
 from glfusion_tpu_torch.data.pipeline import align_views
 
 
@@ -204,3 +207,35 @@ class ClipPipeline:
     ) -> Iterator[Tuple[str, np.ndarray]]:
         """Serve from NIfTI paths: ``(clip_id, {view: image_path})``."""
         return self.predict_iter(clips, self.decode_paths)
+
+
+def serve_test_clips(trainer, out_dir: str = "./predictions",
+                     depth: int = 2, threads: int = 2) -> dict:
+    """``--mode serve``: ``Trainer.infer`` through the pipeline, with timing.
+
+    The same files as ``Trainer.infer`` (``pred_<clip>_v<view>.nii.gz``,
+    (5, H, W, T) uint8), with decode, forward and fetch overlapped; returns
+    ``{"written", "clips", "clips_per_s", "wall_s"}``.
+    """
+    from pathlib import Path
+
+    cfg = trainer.cfg
+    pipe = ClipPipeline(cfg, trainer.model, depth=depth, threads=threads,
+                        device=trainer.device)
+    clips = [(cid, dict(trainer.test_infos[cid]["views_images"]))
+             for cid in sorted(trainer.test_infos)]
+    out = Path(out_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    written = served = 0  # a clip with no requested view is skipped
+    t0 = time.perf_counter()
+    for cid, pred in pipe.predict_paths(clips):
+        served += 1
+        for vi, view in enumerate(cfg.model.views):
+            # (T, H, W, 5) → (5, H, W, T)
+            write_nifti(out / f"pred_{cid}_v{view}.nii.gz",
+                        np.transpose(pred[vi], (3, 1, 2, 0)))
+            written += 1
+    wall = time.perf_counter() - t0
+    return {"written": written, "clips": served,
+            "clips_per_s": round(served / wall, 3) if wall else None,
+            "wall_s": round(wall, 3)}

@@ -7,6 +7,11 @@ semantics the JAX package copies: the L2 term is added to the gradient
 before the moments (not AdamW), eps 1e-8. The cosine is a closed-form
 ``LambdaLR`` that holds at the floor after ``T_max`` epochs, as the JAX
 schedule does (``CosineAnnealingLR``'s recurrence would rise again).
+
+``state_payload`` and ``load_payload`` carry the whole training state to
+and from a checkpoint (``utils/checkpoint.py``): the weights and BN
+statistics, Adam's moments and step counts, and the schedule's epoch, so a
+restored run takes the uninterrupted run's next update.
 """
 
 from __future__ import annotations
@@ -37,3 +42,22 @@ def make_scheduler(cfg: Config, optimizer: torch.optim.Optimizer
     t_max = cfg.opt.cosine_t_max
     return torch.optim.lr_scheduler.LambdaLR(
         optimizer, lambda epoch: cosine_factor(epoch, t_max))
+
+
+def state_payload(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
+                  scheduler: torch.optim.lr_scheduler.LRScheduler) -> dict:
+    """The training state a checkpoint holds (live tensors: the checkpoint
+    manager snapshots them)."""
+    return {"network": model.state_dict(),
+            "optimizer": optimizer.state_dict(),
+            "scheduler": scheduler.state_dict()}
+
+
+def load_payload(payload: dict, model: torch.nn.Module,
+                 optimizer: torch.optim.Optimizer,
+                 scheduler: torch.optim.lr_scheduler.LRScheduler) -> None:
+    """Put a checkpoint's state back. The ``LambdaLR`` keeps its lambda (a
+    function is not saved) and takes the saved epoch and learning rates."""
+    model.load_state_dict(payload["network"])
+    optimizer.load_state_dict(payload["optimizer"])
+    scheduler.load_state_dict(payload["scheduler"])

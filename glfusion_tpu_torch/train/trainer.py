@@ -1,23 +1,33 @@
 """Trainer: the reference's train and validation loops on the card.
 
-The port of ``glfusion_tpu/train/trainer.py`` (``Trainer.__init__``,
-``train``, ``_train_epoch``, ``validation_and_test``,
-``evaluate_val_frames``, ``evaluate_clips``). Host batches come from the
-numpy loaders through a prefetch thread; the crop, /255 and label remap run
-on the card (``data/pipeline.preprocess_batch``); metrics accumulate on the
-card and are fetched once per epoch or evaluation.
+The port of ``glfusion_tpu/train/trainer.py``: ``train``, ``_train_epoch``,
+``validation_and_test``, ``evaluate_val_frames``, ``evaluate_clips``, the
+lifecycle (``request_stop``, ``load_latest``, ``load_torch_checkpoint``,
+``load_imagenet_backbone``, ``sweep_checkpoints``) and the output modes
+(``test_visualize``, ``infer``). Host batches come from the numpy loaders
+through a prefetch thread; the crop, /255 and label remap run on the card
+(``data/pipeline.preprocess_batch``); metrics accumulate on the card and are
+fetched once per epoch or evaluation.
 
-Checkpoints are the reference's format: ``{'network': state_dict}`` saved
-as ``<save_dir>/net_{epoch:05}.pth`` after each saved epoch, which the JAX
-CLI reads through ``--torch-ckpt``; ``load_latest`` reads the newest.
-Orbax semantics (atomic async saves, retention, optimizer state, resume,
-preemption), parameter histograms and ``sweep_checkpoints`` are ROADMAP M15.
+Checkpoints (``utils/checkpoint.py``) hold the whole training state: the
+reference's ``net_{epoch:05}.pth`` (``{'network': state_dict}``, which the
+JAX CLI reads through ``--torch-ckpt``) and a sidecar with Adam's state and
+the schedule's epoch. They are written in the background; ``train()``
+flushes them before it returns, also when it raises.
+
+Randomness is a pure function of (seed, epoch, step), as in JAX
+(``trainer.py:136-148``, ``:327-329``): each step seeds its own generator
+(the crops and the sampled cycle starts) and the global RNG (ASPP dropout),
+inside ``torch.random.fork_rng``, from ``step_seed``. Nothing random carries
+from one step to the next, so a run resumed from an epoch's checkpoint takes
+the uninterrupted run's draws. The draws are not JAX's: the two packages use
+different generators; the property is what is ported.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
-import re
 import tempfile
 import time
 from pathlib import Path
@@ -38,14 +48,25 @@ from glfusion_tpu_torch.models import GlobalAndLocal
 from glfusion_tpu_torch.serve import resolve_device
 from glfusion_tpu_torch.train.metrics import overlap_metrics
 from glfusion_tpu_torch.train.step import make_eval_step, make_train_step
-from glfusion_tpu_torch.train.train_state import (make_optimizer,
-                                                  make_scheduler)
+from glfusion_tpu_torch.train.train_state import (load_payload,
+                                                  make_optimizer,
+                                                  make_scheduler,
+                                                  state_payload)
+from glfusion_tpu_torch.utils.checkpoint import CheckpointManager
 from glfusion_tpu_torch.utils.convert import load_checkpoint
+from glfusion_tpu_torch.utils.summary import SummaryWriter
 
 # the reference's fixed eval split of the 10 test clips (main.py:423-424)
 VAL_CLIPS = ["0_0", "0_2"]
 TEST_CLIPS = ["0_1", "0_3", "0_4", "0_5", "0_6", "0_7", "0_8", "0_9"]
-_CKPT = re.compile(r"net_(\d{5})\.pth$")
+
+
+def step_seed(seed: int, epoch: int, step: int) -> int:
+    """The seed of one train step: a fixed function of (seed + 1, epoch,
+    step) (``numpy.random.SeedSequence``), below 2⁶³."""
+    words = np.random.SeedSequence([seed + 1, epoch, step]).generate_state(
+        2, np.uint32)
+    return (int(words[0]) << 31) ^ int(words[1])
 
 
 def _sum(a, b):
@@ -80,7 +101,7 @@ class Trainer:
         self.cfg = cfg
         self.verbose = verbose
         self.device = resolve_device(device)
-        torch.manual_seed(cfg.train.seed)  # initial weights and dropout
+        torch.manual_seed(cfg.train.seed)  # the initial weights
 
         if data_paths is None:
             from glfusion_tpu_torch.data.synthetic import (
@@ -121,44 +142,67 @@ class Trainer:
         self.scheduler = make_scheduler(cfg, self.optimizer)
         self.train_step = make_train_step(cfg, self.model, self.optimizer)
         self.eval_step = make_eval_step(cfg, self.model)
-        # draws the train crops and the sampled cycle starts
-        self.generator = torch.Generator(device=self.device).manual_seed(
-            seed + 1)
-        self.save_dir = Path(cfg.train.save_dir)
+        self.ckpt = CheckpointManager(cfg.train.save_dir,
+                                      max_to_keep=cfg.train.ckpt_keep)
         self._eval_clip_cache = ByteLRU(1 << 30)
         self.epoch = 0
+        self._stop_requested = False
         log_dir = Path(cfg.train.log_dir)
         log_dir.mkdir(parents=True, exist_ok=True)
         self._metrics_path = log_dir / "metrics.jsonl"
+        self.summary = SummaryWriter(str(log_dir))
 
-    # ----------------------------------------------------------- checkpoints
+    # ------------------------------------------------------------- lifecycle
+
+    def request_stop(self) -> None:
+        """Stop at the next epoch boundary: ``train()`` finishes the epoch in
+        flight, checkpoints it (off the ``save_every`` cadence too), flushes
+        and returns, and ``--resume`` continues from there. Only sets a flag,
+        so a signal handler may call it (the CLI's SIGTERM hook)."""
+        self._stop_requested = True
 
     def checkpoint_path(self, epoch: int) -> Path:
-        return self.save_dir / f"net_{epoch:05}.pth"
+        """The reference's ``net_{epoch:05}.pth`` of one saved epoch."""
+        return self.ckpt.paths(epoch)[0]
 
-    def save(self, epoch: int) -> Path:
-        """Write ``net_{epoch:05}.pth`` as the reference does (weights and BN
-        statistics; the optimizer state is not saved, as in the
-        reference)."""
-        self.save_dir.mkdir(parents=True, exist_ok=True)
-        path = self.checkpoint_path(epoch)
-        sd = {k: v.detach().cpu() for k, v in self.model.state_dict().items()}
-        tmp = path.with_suffix(".tmp")
-        torch.save({"network": sd}, tmp)
-        tmp.replace(path)
-        return path
+    def save(self, epoch: int) -> None:
+        """Checkpoint the whole training state as ``epoch``, in the
+        background (``self.ckpt.wait()`` flushes)."""
+        self.ckpt.save(state_payload(self.model, self.optimizer,
+                                     self.scheduler), epoch)
 
     def load_latest(self) -> bool:
-        """Load the newest ``net_*.pth`` of ``save_dir``; False if none."""
-        found = sorted((int(m.group(1)), p) for p in self.save_dir.glob(
-            "net_*.pth") if (m := _CKPT.search(p.name)))
-        if not found:
+        """Restore the newest complete checkpoint: weights, BN statistics,
+        Adam's moments and step counts, the schedule's epoch; training goes
+        on at the epoch after it. False if there is none."""
+        restored = self.ckpt.restore_latest()
+        if restored is None:
             return False
-        epoch, path = found[-1]
-        self.model.load_state_dict(load_checkpoint(str(path)))
-        self.epoch = epoch + 1
-        self._log(f"loaded checkpoint {path}")
+        payload, self.epoch = restored
+        load_payload(payload, self.model, self.optimizer, self.scheduler)
+        self._log(f"restored checkpoint at epoch {self.epoch}")
         return True
+
+    def load_torch_checkpoint(self, path: str) -> None:
+        """Load a reference ``net_XXXXX.pth`` (``{'network': state_dict}``,
+        reference ``main.py:454-457``) into the weights and BN statistics.
+        The optimizer is untouched, as in JAX: the reference never saved
+        it."""
+        self.model.load_state_dict(load_checkpoint(path))
+        self._log(f"loaded torch checkpoint {path}")
+
+    def load_imagenet_backbone(self, path: str) -> None:
+        """Start every view's backbone from a local torchvision ImageNet
+        ResNet-50, as the reference does (``utils/imagenet_init.py``): the
+        1-channel stem conv, the heads and the attentions keep their
+        initialization."""
+        from glfusion_tpu_torch.utils.imagenet_init import (
+            load_imagenet_backbone, merge_backbone)
+
+        conv = load_imagenet_backbone(path, self.cfg.model)
+        self.model.load_state_dict(merge_backbone(self.model.state_dict(),
+                                                  conv))
+        self._log(f"initialized backbone from ImageNet weights {path}")
 
     # -------------------------------------------------------------- training
 
@@ -166,24 +210,50 @@ class Trainer:
         cfg = self.cfg
         num_epochs = num_epochs or cfg.train.num_epochs
         last = {}
-        for epoch in range(self.epoch, num_epochs):
-            t0 = time.time()
-            m = self._train_epoch(epoch)
-            m["epoch_time_s"] = time.time() - t0
-            last = m
-            self._write_log({"epoch": epoch, **m})
-            self._log(f"epoch {epoch}: loss={m['loss']:.1f} "
-                      f"seg={m['seg_loss']:.1f} cyc={m['cyc_loss']:.4f} "
-                      f"dice={m['dice']:.4f} ({m['epoch_time_s']:.1f}s)")
-            self.scheduler.step()  # the cosine steps once per epoch
-            self.epoch = epoch + 1
-            if (cfg.train.eval_every_epochs > 0
-                    and (epoch + 1) % cfg.train.eval_every_epochs == 0):
-                self.validation_and_test()
-            if (cfg.train.save_every_epochs > 0
-                    and (epoch + 1) % cfg.train.save_every_epochs == 0):
-                self.save(epoch)
+        try:
+            for epoch in range(self.epoch, num_epochs):
+                t0 = time.time()
+                m = self._train_epoch(epoch)
+                m["epoch_time_s"] = time.time() - t0
+                last = m
+                self.scheduler.step()  # the cosine steps once per epoch
+                self._write_log({"epoch": epoch, **m})
+                self._log(f"epoch {epoch}: loss={m['loss']:.1f} "
+                          f"seg={m['seg_loss']:.1f} cyc={m['cyc_loss']:.4f} "
+                          f"dice={m['dice']:.4f} ({m['epoch_time_s']:.1f}s)")
+                if cfg.train.log_histograms:
+                    self._log_param_histograms(epoch)
+                if (cfg.train.eval_every_epochs > 0
+                        and (epoch + 1) % cfg.train.eval_every_epochs == 0):
+                    self.validation_and_test()
+                saved = (cfg.train.save_every_epochs > 0
+                         and (epoch + 1) % cfg.train.save_every_epochs == 0)
+                if saved or self._stop_requested:
+                    self.save(epoch)  # asynchronous; flushed below
+                self.epoch = epoch + 1
+                if self._stop_requested:
+                    self._log(f"stop requested: checkpointed epoch {epoch}, "
+                              "exiting")
+                    break
+        finally:
+            # the last checkpoint is in place when train() ends, also when
+            # an exception (out of memory, Ctrl-C) leaves the loop
+            self.ckpt.wait()
+            self.summary.flush()
         return last
+
+    @contextlib.contextmanager
+    def step_randomness(self, epoch: int, step: int):
+        """One train step's randomness: yields the generator of its crops
+        and cycle starts, with the global RNG (dropout) seeded too, both
+        from ``step_seed``; the global RNG's state is put back after."""
+        seed = step_seed(self.cfg.train.seed, epoch, step)
+        cuda = self.device.type == "cuda"
+        with torch.random.fork_rng(
+                devices=[self.device.index or 0] if cuda else [],
+                device_type="cuda"):
+            torch.manual_seed(seed)
+            yield torch.Generator(device=self.device).manual_seed(seed)
 
     def _cycle_clips(self, epoch: int):
         """Endless cycle clips of the epoch (restarted on exhaustion), or
@@ -214,14 +284,16 @@ class Trainer:
             return t.pin_memory().to(self.device, non_blocking=True)
         return t
 
-    def train_batch(self, host_batch: dict, cycle_iter) -> dict:
-        """One host batch → the device batch the train step takes."""
+    def train_batch(self, host_batch: dict, cycle_iter,
+                    generator: torch.Generator) -> dict:
+        """One host batch → the device batch the train step takes; the
+        crops are drawn from ``generator``."""
         cfg = self.cfg
         batch = preprocess_batch(
             self._to_device(host_batch["images_raw"]),
             self._to_device(host_batch["masks_raw"]),
             crop_hw=cfg.data.crop_hw, is_train=True, view_ids=self.view_ids,
-            generator=self.generator)
+            generator=generator)
         if cycle_iter is not None:
             batch["clips"] = self._to_device(next(cycle_iter))[..., None]
         return batch
@@ -231,9 +303,9 @@ class Trainer:
         agg, steps = None, 0
         for host_batch in prefetch(
                 self.train_loader.batches(self.update_frames, epoch)):
-            metrics = self.train_step(self.train_batch(host_batch,
-                                                       cycle_iter),
-                                      self.generator)
+            with self.step_randomness(epoch, steps) as gen:
+                metrics = self.train_step(
+                    self.train_batch(host_batch, cycle_iter, gen), gen)
             agg = metrics if agg is None else _sum(agg, metrics)
             steps += 1
         if agg is None:
@@ -360,7 +432,106 @@ class Trainer:
             f"dice_{v}": report["views"][v]["dice"] for v in report["views"]}})
         return report
 
+    def sweep_checkpoints(self, min_epoch: int = 50) -> dict:
+        """Validate every saved epoch; the best Inner-val mean Dice wins.
+
+        The reference's sweep (``main.py:316-323``, ``:414-416``) picks the
+        best epoch ≥ ``min_epoch``; when no saved epoch reaches it (a short
+        run), every epoch counts. The trainer's own weights and epoch are put
+        back afterwards.
+        """
+        steps = self.ckpt.all_steps()
+        if not steps:
+            self._log("no checkpoints to sweep")
+            return {}
+        best = {"epoch": None, "val_dice": -1.0, "test": None}
+        apply_min = any(s >= min_epoch for s in steps)
+        original = {k: v.clone() for k, v in self.model.state_dict().items()}
+        original_epoch = self.epoch
+        try:
+            for step in steps:
+                payload = self.ckpt.restore_step(step, train_state=False)
+                if payload is None:
+                    continue
+                self.model.load_state_dict(payload["network"])
+                self.epoch = step
+                res = self.validation_and_test()
+                val = res.get("Inner-val", {}).get("views", {})
+                val_dice = (float(np.mean([v["dice"] for v in val.values()]))
+                            if val else 0.0)
+                self._log(f"sweep epoch {step}: val dice {val_dice:.4f}")
+                if (step >= min_epoch or not apply_min) \
+                        and val_dice > best["val_dice"]:
+                    best = {"epoch": step, "val_dice": val_dice,
+                            "test": res.get("Inner-test")}
+        finally:
+            self.model.load_state_dict(original)
+            self.epoch = original_epoch
+        if best["epoch"] is not None:
+            self._log(f"best val epoch {best['epoch']} "
+                      f"(dice {best['val_dice']:.4f})")
+        return best
+
+    # ---------------------------------------------------------------- output
+
+    def _test_clip_logits(self):
+        """(clip id, (V, T, H, W, 5) logits on the device) of every test clip
+        in id order."""
+        cfg = self.cfg
+        loader = TestClipLoader(self.test_infos, sorted(self.test_infos),
+                                cfg.model.views, cfg.data.clip_length)
+        for clip in prefetch(loader.clips()):
+            batch = {"images": self._to_device(clip["images"]),
+                     "masks": self._to_device(clip["masks"])}
+            yield clip["clip_id"], self.eval_step(batch)["logits"]
+
+    def test_visualize(self, method_name: str = "glfusion_tpu_torch",
+                       out_dir: str = "./visualze_for_ppt") -> int:
+        """Write colorized prediction PNGs of every test clip
+        (reference ``main.py:546-648``):
+        ``<out>/<method>/192_data/<patient>/<view>/pred_<t>.png``. Returns
+        the number of PNGs written."""
+        from glfusion_tpu_torch.utils.visualize import save_clip_visualization
+
+        written = 0
+        for cid, logits in self._test_clip_logits():
+            for vi, view in enumerate(self.cfg.model.views):
+                written += save_clip_visualization(out_dir, method_name, cid,
+                                                   view, logits[vi])
+            self._log(f"patient {cid} pred finished")
+        return written
+
+    def infer(self, out_dir: str = "./predictions") -> int:
+        """Predict every test clip and write its masks as NIfTI:
+        ``pred_<clip>_v<view>.nii.gz``, (5, H, W, T) uint8 (the
+        ``Test_Seg_PAHDataset`` label layout), logit > 0 as the threshold.
+        Returns the number of files written."""
+        from glfusion_tpu_torch.data.nifti import write_nifti
+
+        out = Path(out_dir)
+        out.mkdir(parents=True, exist_ok=True)
+        written = 0
+        for cid, logits in self._test_clip_logits():
+            pred = (logits > 0.0).to(torch.uint8).cpu().numpy()
+            for vi, view in enumerate(self.cfg.model.views):
+                # (T, H, W, 5) → (5, H, W, T)
+                write_nifti(out / f"pred_{cid}_v{view}.nii.gz",
+                            np.transpose(pred[vi], (3, 1, 2, 0)))
+                written += 1
+            self._log(f"clip {cid} predicted")
+        return written
+
     # ----------------------------------------------------------------- utils
+
+    def _log_param_histograms(self, epoch: int) -> None:
+        """One TensorBoard histogram a parameter (``--log-histograms``, the
+        reference's optional pass, ``main.py:252-255``)."""
+        if not self.summary.active:
+            return
+        for name, p in self.model.named_parameters():
+            self.summary.add_histogram(f"params/{name}",
+                                       p.detach().float().cpu().numpy(),
+                                       epoch)
 
     def _log(self, msg: str) -> None:
         if self.verbose:
@@ -369,3 +540,7 @@ class Trainer:
     def _write_log(self, record: dict) -> None:
         with open(self._metrics_path, "a") as f:
             f.write(json.dumps(record) + "\n")
+        # numeric fields mirrored to TensorBoard (reference main.py:874-883)
+        for k, v in record.items():
+            if isinstance(v, (int, float)) and k != "epoch":
+                self.summary.add_scalar(k, v, self.epoch)

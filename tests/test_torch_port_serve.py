@@ -137,6 +137,8 @@ def test_port_imports_no_jax():
     files = sorted((ROOT / "glfusion_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 15
+    for new in ("checkpoint", "imagenet_init", "visualize", "summary"):
+        assert ROOT / "glfusion_tpu_torch" / "utils" / f"{new}.py" in files
     banned = ("jax", "flax", "glfusion_tpu")
     for f in files:
         for mod in _imports(f):

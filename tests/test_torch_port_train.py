@@ -475,7 +475,8 @@ def test_per_view_init_is_identical():
 
 def test_cli_train_then_val_and_jax_scores_the_checkpoint(tmp_path, capsys):
     """``--mode train --tiny --platform cpu`` (2 epochs, validation after
-    the second), then ``--mode val``; the saved ``net_00001.pth`` loads back into
+    the second; each epoch's net file and its training-state sidecar), then
+``--mode val``; the saved ``net_00001.pth`` loads back into
     the port and converts for the JAX model (``load_torch_checkpoint``,
     the JAX CLI's ``--torch-ckpt``), whose eval forward on a test clip
     gives the port's logits (atol = rtol = 2e-4)."""
@@ -483,7 +484,8 @@ def test_cli_train_then_val_and_jax_scores_the_checkpoint(tmp_path, capsys):
             str(tmp_path / "ckpt"), "--log-dir", str(tmp_path / "log")]
     assert cli.main(["--mode", "train", "--eval-every", "2"] + args) == 0
     assert sorted(p.name for p in (tmp_path / "ckpt").iterdir()) == [
-        "net_00000.pth", "net_00001.pth"]
+        "net_00000.pth", "net_00001.pth", "state_00000.pth",
+        "state_00001.pth"]
     assert cli.main(["--mode", "val"] + args) == 0
     out = capsys.readouterr().out
     assert "epoch 1:" in out and "Inner-test view 4" in out
