@@ -1,8 +1,11 @@
 """Command-line entry point of the port: ``python -m glfusion_tpu_torch``.
 
 The port of ``glfusion_tpu/cli.py`` for ``--mode train|val|visual|infer|
-serve`` (reference ``main.py --mode``), with the JAX CLI's flag names and
-guards. Without ``--data-root`` a synthetic corpus exercises the full
+serve|export`` (reference ``main.py --mode``), with the JAX CLI's flag
+names and guards: ``--variant global_and_local|cps|temporal``,
+``--checkify``, ``--debug-nans``, ``--http-port`` (an HTTP endpoint,
+``http_serve.py``) and ``--from-export`` (serving a ``--mode export``
+artifact). Without ``--data-root`` a synthetic corpus exercises the full
 pipeline. It runs on the card; ``--platform cpu`` runs on the CPU, and
 without it a machine with no CUDA raises. SIGTERM stops a training run at
 the next epoch boundary with that epoch checkpointed; ``--resume``
@@ -11,8 +14,8 @@ continues it.
 TF32 policy: in float32 the CLI turns TF32 off for cuBLAS and cuDNN, so
 "float32" is IEEE float32, as in the JAX package's tests, on the CPU and in
 every figure measured on the card; bfloat16 leaves PyTorch's settings as
-they are. ``--mode export``, ``--from-export``, the HTTP endpoint and the
-regression modes are ROADMAP Queue 1.
+they are. The other flagship variants and the regression modes are
+ROADMAP Queue 1.
 """
 
 from __future__ import annotations
@@ -24,6 +27,12 @@ from pathlib import Path
 
 from glfusion_tpu_torch.config import ALL_VIEWS, Config, tiny_config
 
+# JAX's --variant choices; 'temporal' is a train switch on the plain model
+VARIANTS = ("global_and_local", "global_only", "local_only", "cyc_nofusion",
+            "global_only_cyc_nofusion", "conv_merge", "fg_bg",
+            "early_fusion", "late_fusion", "cps", "temporal")
+PORTED_VARIANTS = ("global_and_local", "cps", "temporal")
+
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
@@ -31,13 +40,19 @@ def build_parser() -> argparse.ArgumentParser:
         description="GL-Fusion multi-view echocardiogram segmentation "
                     "(PyTorch, one NVIDIA H100)")
     p.add_argument("--mode", choices=["train", "val", "visual", "infer",
-                                      "serve"], default="train",
+                                      "serve", "export"], default="train",
                    help="train (then validate each epoch); val, visual, "
-                        "infer and serve use the newest checkpoint under "
-                        "--save-dir (or --torch-ckpt): val evaluates, "
+                        "infer, serve and export use the newest checkpoint "
+                        "under --save-dir (or --torch-ckpt): val evaluates, "
                         "visual writes PNGs, infer writes NIfTI masks, "
                         "serve writes them through the pipelined "
-                        "ClipPipeline")
+                        "ClipPipeline (or, with --http-port, answers "
+                        "requests), export writes a torch.export program "
+                        "of the serving forward")
+    p.add_argument("--variant", default="global_and_local", choices=VARIANTS,
+                   help="'cps' = the cross-pseudo-supervision twin; "
+                        "'temporal' = cycle clips run video attention over "
+                        "T·V·h·w tokens (a train switch on the flagship)")
     p.add_argument("--data-root", default=None,
                    help="dataset root containing infos/, data_list/, .nii.gz;"
                         " omit to run on synthetic data")
@@ -113,6 +128,29 @@ def build_parser() -> argparse.ArgumentParser:
                    help="epochs between in-training validations")
     p.add_argument("--save-every", type=int, default=1,
                    help="epochs between checkpoints")
+    p.add_argument("--checkify", action="store_true",
+                   help="finiteness checks on the loss and the gradient "
+                        "norm each step, read one step late (no step waits "
+                        "for its own); a NaN raises by the epoch's end")
+    p.add_argument("--debug-nans", action="store_true",
+                   help="raise at the first op whose output holds a NaN "
+                        "(forward and backward; slow: one host read an op, "
+                        "utils/debug.py)")
+    p.add_argument("--http-port", type=int, default=None,
+                   help="--mode serve: answer POST /predict and GET /healthz "
+                        "on this port (0 picks a free one) instead of "
+                        "writing the test clips' masks")
+    p.add_argument("--http-host", default="127.0.0.1",
+                   help="--http-port bind address (0.0.0.0 to expose)")
+    p.add_argument("--export-dir", default="./exported",
+                   help="--mode export: output directory of the program "
+                        "and its meta.json")
+    p.add_argument("--export-hw", type=int, default=None,
+                   help="--mode export: pinned spatial size of the program's "
+                        "input (default: the crop size)")
+    p.add_argument("--from-export", default=None,
+                   help="--mode serve: run a saved --mode export program "
+                        "instead of a checkpoint's weights")
     p.add_argument("--platform", default=None, choices=["cpu", "cuda"],
                    help="cpu runs on the CPU; default: the CUDA card")
     return p
@@ -120,6 +158,13 @@ def build_parser() -> argparse.ArgumentParser:
 
 def config_from_args(args: argparse.Namespace) -> Config:
     cfg = tiny_config() if args.tiny else Config()
+    if args.variant not in PORTED_VARIANTS:
+        raise SystemExit(
+            f"error: --variant {args.variant}: the other flagship variants "
+            f"are ROADMAP Queue 1 item 3; the port runs "
+            f"{list(PORTED_VARIANTS)}")
+    temporal = args.variant == "temporal"
+    variant = "global_and_local" if temporal else args.variant
     views = tuple(args.views.split(","))
     bad = [v for v in views if v not in ALL_VIEWS]
     if bad:
@@ -133,7 +178,7 @@ def config_from_args(args: argparse.Namespace) -> Config:
     return dataclasses.replace(
         cfg,
         model=dataclasses.replace(
-            cfg.model, views=views,
+            cfg.model, views=views, variant=variant,
             dtype=(args.dtype or cfg.model.dtype),
             remat=args.remat or cfg.model.remat),
         data=dataclasses.replace(
@@ -149,6 +194,7 @@ def config_from_args(args: argparse.Namespace) -> Config:
             dense_cyc=args.dense_cyc,
             cycle_light=args.cycle_light,
             fuse_passes=args.fuse_passes,
+            temporal=temporal,
             grad_accum=args.grad_accum,
             save_dir=args.save_dir,
             log_dir=args.log_dir,
@@ -157,6 +203,7 @@ def config_from_args(args: argparse.Namespace) -> Config:
             save_every_epochs=args.save_every,
             ckpt_keep=args.ckpt_keep,
             log_histograms=args.log_histograms,
+            checkify=args.checkify,
         ),
     )
 
@@ -205,6 +252,15 @@ def _train(trainer) -> None:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    if args.debug_nans:
+        from glfusion_tpu_torch.utils.debug import debug_nans
+
+        with debug_nans():
+            return _main(args)
+    return _main(args)
+
+
+def _main(args: argparse.Namespace) -> int:
     cfg = config_from_args(args)
     apply_tf32_policy(cfg)
     data_paths = (None if args.data_root is None
@@ -222,14 +278,24 @@ def main(argv=None) -> int:
     if args.torch_ckpt is not None:
         trainer.load_torch_checkpoint(args.torch_ckpt)
         restored = True
+    elif args.mode == "serve" and args.from_export is not None:
+        pass  # the export carries its own weights
     elif args.resume or args.mode != "train":
         restored = trainer.load_latest()
-    if args.mode in ("val", "serve") and not restored:
+    if args.mode == "export" and not restored:
+        raise SystemExit(
+            "error: --mode export found no weights to bake into the "
+            "artifact (no checkpoint under --save-dir and no --torch-ckpt);"
+            " exporting a random-init model is never what you want")
+    if (args.mode in ("val", "serve") and args.from_export is None
+            and not restored):
         # a served endpoint or a score on random-init weights is never
         # what the caller wants
         raise SystemExit(
             f"error: --mode {args.mode} found no weights (no checkpoint "
-            f"under {cfg.train.save_dir}, no --torch-ckpt); train first")
+            f"under {cfg.train.save_dir}, no --torch-ckpt, no "
+            f"--from-export); train first or point at a checkpoint or an "
+            f"export")
 
     if args.mode == "train":
         _train(trainer)
@@ -244,12 +310,27 @@ def main(argv=None) -> int:
     elif args.mode == "infer":
         n = trainer.infer(out_dir=args.out_dir)
         print(f"wrote {n} prediction volumes")
+    elif args.mode == "export":
+        from glfusion_tpu_torch.utils.model_export import (
+            export_serving_forward, save_exported)
+
+        ep = export_serving_forward(cfg, trainer.model, hw=args.export_hw)
+        meta = save_exported(ep, args.export_dir, cfg)
+        print(f"exported serving forward to {args.export_dir} "
+              f"({meta['serialized_bytes']} bytes, device "
+              f"{meta['device']}, symbolic frame axis)")
+    elif args.http_port is not None:  # serve behind an endpoint
+        from glfusion_tpu_torch.http_serve import serve_http
+
+        serve_http(trainer, host=args.http_host, port=args.http_port,
+                   from_export=args.from_export)
     else:  # serve
         from glfusion_tpu_torch.serve import serve_test_clips
 
         stats = serve_test_clips(
             trainer, out_dir=args.out_dir, depth=args.serve_depth,
-            threads=args.serve_threads or min(4, os.cpu_count() or 1))
+            threads=args.serve_threads or min(4, os.cpu_count() or 1),
+            from_export=args.from_export)
         print(f"served {stats['clips']} clips ({stats['clips_per_s']} "
               f"clips/s, {stats['wall_s']} s): wrote {stats['written']} "
               f"prediction volumes")

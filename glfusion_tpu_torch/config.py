@@ -47,7 +47,7 @@ class ModelConfig:
     tpavi_inter_channels: int | None = None
     # Center-aware local masking weight
     center_aware_weight: float = 20.0
-    # Model variant switch (the port implements "global_and_local")
+    # Model variant switch (the port builds "global_and_local" and "cps")
     variant: str = "global_and_local"
     # Trainable architecture family (the port implements "glfusion")
     arch: str = "glfusion"
@@ -110,10 +110,8 @@ class OptConfig:
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """Training loop. The port takes cycle_light, fuse_passes, grad_accum,
-    remat_supervised, ckpt_keep and log_histograms; temporal, CPS, checkify
-    and the mesh fields are kept so one configuration describes both
-    packages."""
+    """Training loop. The port takes every field but the mesh's, which are
+    kept so one configuration describes both packages."""
 
     batch_size: int = 8
     num_epochs: int = 100

@@ -119,6 +119,11 @@ __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+// max that keeps a NaN, as torch's relu and max_pool2d and JAX's maximum
+// do (fmaxf would return the other operand)
+__device__ __forceinline__ float nan_max(float a, float b) {
+  return (a > b || a != a) ? a : b;
+}
 __device__ __forceinline__ void store_as(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_as(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
@@ -320,10 +325,10 @@ norm_pool_kernel(const T* __restrict__ x, const float* __restrict__ w,
       for (int dj = 0; dj < 3; ++dj) {
         const int xx = 2 * px - 1 + dj;
         if (xx < 0 || xx >= g.wc) continue;
-        m = fmaxf(m, fmaf(zc[(y - zr0) * g.wc + xx] - mu, a, be));
+        m = nan_max(fmaf(zc[(y - zr0) * g.wc + xx] - mu, a, be), m);
       }
     }
-    store_as(outc + py * g.wp + px, fmaxf(m, 0.f));
+    store_as(outc + py * g.wp + px, nan_max(m, 0.f));
   }
 }
 

@@ -1,5 +1,8 @@
-"""Models of the port: the GL-Fusion flagship and its building blocks."""
+"""Models of the port: the GL-Fusion flagship, its CPS twin and their
+building blocks."""
 
-from glfusion_tpu_torch.models.glfusion import GlobalAndLocal
+from glfusion_tpu_torch.models.glfusion import (GlobalAndLocal,
+                                                GlobalAndLocalCPS,
+                                                build_model)
 
-__all__ = ["GlobalAndLocal"]
+__all__ = ["GlobalAndLocal", "GlobalAndLocalCPS", "build_model"]

@@ -32,13 +32,21 @@ parameters stay float32), the outputs are in it; ``cfg.remat`` and
 not move on cycle frames; ``sup_count`` runs the backbone and the global
 attention once over the supervised frames and the clip concatenated, BN
 moments over the merged batch, and the heads and the local attention on
-the supervised frames only.
+the supervised frames only. ``is_video`` (the ``temporal`` train option)
+folds a clip's T frames into the attention's token axis, as JAX does: each
+attention sees (1, T·V·h·w, C) instead of T batches of V·h·w tokens.
+
+``GlobalAndLocalCPS`` is the cross-pseudo-supervision twin (JAX
+``GlobalAndLocalCPS``): two independently initialised flagships ``net1``
+and ``net2`` on the same input. ``build_model`` maps ``variant='cps'`` to
+it, as JAX ``models/registry.py::build_seg_model`` does.
 """
 
 from __future__ import annotations
 
 import copy
-from typing import Dict, List
+import dataclasses
+from typing import Dict, List, Tuple
 
 import torch
 import torch.nn as nn
@@ -52,14 +60,19 @@ from glfusion_tpu_torch.models.tpavi import TPAVI
 from glfusion_tpu_torch.ops.resize import resize_bilinear_nchw
 
 
+# the flagship variants the port builds; the others are ROADMAP Queue 1
+# item 3 (M11)
+VARIANTS = ("global_and_local", "cps")
+
+
 def _check_supported(cfg: ModelConfig) -> None:
     if cfg.arch != "glfusion":
         raise NotImplementedError(
             f"arch {cfg.arch!r}: the segmentation zoo is ROADMAP M13")
-    if cfg.variant != "global_and_local":
+    if cfg.variant not in VARIANTS:
         raise NotImplementedError(
             f"variant {cfg.variant!r}: the other flagship variants are "
-            "ROADMAP M11")
+            "ROADMAP Queue 1 item 3 (M11)")
     if len(cfg.block_sizes) != 4:
         raise ValueError("the reference names four stages, layer1..layer4")
 
@@ -68,6 +81,10 @@ class GlobalAndLocal(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         _check_supported(cfg)
+        if cfg.variant != "global_and_local":
+            raise ValueError(f"GlobalAndLocal is the global_and_local "
+                             f"variant; build {cfg.variant!r} with "
+                             f"build_model")
         self.cfg = cfg
         self.dtype = dt = compute_dtype(cfg.dtype)
         c = cfg.backbone_out_channels
@@ -105,9 +122,15 @@ class GlobalAndLocal(nn.Module):
         return x
 
     @staticmethod
-    def _attend(attn: TPAVI, feats: List[torch.Tensor]) -> torch.Tensor:
-        """TPAVI over per-view NCHW maps → (B, V, h, w, C)."""
-        return attn(torch.stack(feats, dim=1).permute(0, 1, 3, 4, 2))
+    def _attend(attn: TPAVI, feats: List[torch.Tensor],
+                is_video: bool = False) -> torch.Tensor:
+        """TPAVI over per-view NCHW maps → (B, V, h, w, C); with
+        ``is_video`` the B frames join the token axis (JAX ``attend``)."""
+        y = torch.stack(feats, dim=1).permute(0, 1, 3, 4, 2)
+        if not is_video:
+            return attn(y)
+        b, v, h, w, c = y.shape
+        return attn(y.reshape(1, b * v, h, w, c)).reshape(b, v, h, w, c)
 
     def forward(self, x: torch.Tensor, is_video: bool = False,
                 features_only: bool = False,
@@ -119,18 +142,16 @@ class GlobalAndLocal(nn.Module):
         ``sup_count``: x is the supervised batch (its first ``sup_count``
         frames) and the cycle clip concatenated on axis 1; ``mask``,
         ``mask_bb`` and ``f4_local`` cover the supervised frames,
-        ``f4_global`` the clip's. ``is_video`` (the temporal option) is
-        ROADMAP Queue 1.
+        ``f4_global`` the clip's. ``is_video``: x is one clip (its frames on
+        axis 1), and both attentions attend over all of its frames at once.
         """
-        if is_video:
-            raise NotImplementedError("is_video (temporal) is ROADMAP Queue 1")
         cfg = self.cfg
         views = list(cfg.views)
         v_n, b_n, hh, ww, _ = x.shape
         if v_n != len(views):
             raise ValueError(f"input has {v_n} views, the model {len(views)}")
         if sup_count is not None:
-            if features_only:
+            if features_only or is_video:
                 raise ValueError("sup_count is exclusive of features_only/"
                                  "is_video")
             if not 0 < sup_count < b_n:
@@ -144,8 +165,8 @@ class GlobalAndLocal(nn.Module):
         f4 = [self._backbone(v, x[i, ..., 0].unsqueeze(1))
               for i, v in enumerate(views)]
         if features_only:
-            return {"f4_global": self._attend(self.global_attn,
-                                              f4).transpose(0, 1)}
+            return {"f4_global": self._attend(self.global_attn, f4,
+                                              is_video).transpose(0, 1)}
         glob = cycle = None
         if sup_count is not None:
             # the global attention over the merged batch, then the tail
@@ -162,9 +183,9 @@ class GlobalAndLocal(nn.Module):
             m_ctr = torch.sigmoid(self.centerness[v](f4[i]))
             atten = torch.sigmoid(cfg.center_aware_weight * m_cls * m_ctr)
             f4_local_in.append(f4[i] * atten)
-        local = self._attend(self.local_attn, f4_local_in)
+        local = self._attend(self.local_attn, f4_local_in, is_video)
         if glob is None:
-            glob = self._attend(self.global_attn, f4)
+            glob = self._attend(self.global_attn, f4, is_video)
 
         masks, masks_bb = [], []
         for i, v in enumerate(views):
@@ -186,3 +207,34 @@ class GlobalAndLocal(nn.Module):
             "f4_global": (glob if cycle is None else cycle).transpose(0, 1),
             "f4_local": local.transpose(0, 1),
         }
+
+
+class GlobalAndLocalCPS(nn.Module):
+    """Cross-pseudo-supervision twin (JAX ``GlobalAndLocalCPS``, reference
+    ``models/ours.py:3141-3351``): two independently initialised
+    flagships on the same input. Returns both mask sets and network 1's
+    ``f4_global`` and ``f4_local``; the train step supervises each network
+    with the other's thresholded predictions."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        inner = dataclasses.replace(cfg, variant="global_and_local")
+        self.cfg = inner
+        self.net1 = GlobalAndLocal(inner)
+        self.net2 = GlobalAndLocal(inner)  # drawn after net1: other weights
+
+    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        out1, out2 = self.net1(x), self.net2(x)
+        return {"mask": out1["mask"], "mask_2": out2["mask"],
+                "f4_global": out1["f4_global"],
+                "f4_local": out1["f4_local"]}
+
+
+def build_model(cfg: ModelConfig) -> Tuple[nn.Module, bool]:
+    """``(model, is_cps)`` of a model configuration (JAX
+    ``build_seg_model`` for ``arch='glfusion'``): ``variant='cps'`` is the
+    twin, ``global_and_local`` the flagship."""
+    _check_supported(cfg)
+    if cfg.variant == "cps":
+        return GlobalAndLocalCPS(cfg), True
+    return GlobalAndLocal(cfg), False

@@ -13,8 +13,12 @@ contracts into one float32 sum. Accumulation is float32; operands and
 output are float32 or bfloat16. The backward is the three reassociated
 products of the JAX custom VJP, which are plain products there too.
 
-``fused_dot_nonlocal`` takes the plain version only for tensors on the
-CPU; for CUDA tensors it launches the kernel or raises.
+The function is a registered op (``torch.library.custom_op``,
+``glfusion_tpu_torch::fused_dot_nonlocal``) with a fake implementation
+and its autograd formula, so ``torch.export`` records the kernel as one
+node and an exported serving program runs it after importing this module
+alone. ``fused_dot_nonlocal`` takes the plain version only for tensors on
+the CPU; for CUDA tensors it launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -32,6 +36,10 @@ _SOURCE = "tpavi_fused"
 # bfloat16 operands go through TMA, which needs 16-byte aligned rows;
 # float32 workspace rows are padded to 16 bytes for the vector copies
 _ROW_ALIGN = {torch.float32: 4, torch.bfloat16: 8}
+# split K (csrc/tpavi_fused.cu): stage 1 over more than 2·SPLIT_K tokens
+# runs as partial products over chunks of SPLIT_K tokens, then a fixed-order
+# sum of the partials
+SPLIT_K = 4096
 
 
 def reassociated(n: int, c: int) -> bool:
@@ -53,16 +61,25 @@ def fused_dot_nonlocal_naive(theta: torch.Tensor, phi: torch.Tensor,
 def fused_dot_nonlocal_plain(theta: torch.Tensor, phi: torch.Tensor,
                              g: torch.Tensor) -> torch.Tensor:
     """The kernel's arithmetic in plain PyTorch: the same order, float32
-    products and a float32 intermediate; the only rounding to the input
-    type is the output's. (The bfloat16 kernel's hi/lo intermediate differs
-    from float32 by about 2⁻¹⁷ relative.)"""
+    products and a float32 intermediate, and over a long token axis the
+    same split K (partials over chunks of SPLIT_K tokens, summed in chunk
+    order); the only rounding to the input type is the output's. (The
+    bfloat16 kernel's hi/lo intermediate, and its hi/lo partials in split
+    K, differ from float32 by about 2⁻¹⁷ relative.)"""
     n, c = theta.shape[-2:]
     f32 = torch.float32
     t, p, gg = (x.to(f32) for x in (theta, phi, g))
-    if reassociated(n, c):
-        y = torch.bmm(t, torch.bmm(p.transpose(1, 2), gg))
-    else:
+    if not reassociated(n, c):
         y = torch.bmm(torch.bmm(t, p.transpose(1, 2)), gg)
+    elif n > 2 * SPLIT_K:
+        m = None
+        for first in range(0, n, SPLIT_K):
+            chunk = slice(first, first + SPLIT_K)
+            part = torch.bmm(p[:, chunk].transpose(1, 2), gg[:, chunk])
+            m = part if m is None else m + part
+        y = torch.bmm(t, m)
+    else:
+        y = torch.bmm(t, torch.bmm(p.transpose(1, 2), gg))
     return (y / n).to(theta.dtype)
 
 
@@ -75,6 +92,9 @@ def _library() -> ctypes.CDLL:
         i, i, i, p, ll, ll, p, ll, ll, p, ll, ll, ll, i, i, i, i, i,
         ctypes.c_float, i, p]
     lib.tpavi_gemm.restype = i
+    lib.tpavi_split_reduce.argtypes = [
+        i, p, ll, ll, ll, i, p, ll, ll, i, i, i, ll, i, p]
+    lib.tpavi_split_reduce.restype = i
     lib.tpavi_error_string.argtypes = [i]
     lib.tpavi_error_string.restype = ctypes.c_char_p
     return lib
@@ -110,15 +130,57 @@ def _gemm(a: torch.Tensor, a_mn: bool, b: torch.Tensor, b_mn: bool,
 
     def run() -> None:  # holds a, b and c alive as long as it lives
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.tpavi_gemm(
+        _raise_on(lib, lib.tpavi_gemm(
             _DTYPE_CODES[c.dtype], int(a_mn), int(b_mn), a.data_ptr(),
             *_strides(a), b.data_ptr(), *_strides(b), c.data_ptr(),
             *_strides(c), c_lo, split, c.shape[0], m, n, k, float(div),
-            dev.index, stream)
-        if err != 0:
-            raise RuntimeError(
-                f"fused_dot_nonlocal: kernel launch failed with CUDA error "
-                f"{err} ({lib.tpavi_error_string(err).decode()})")
+            dev.index, stream))
+
+    return run
+
+
+def _raise_on(lib, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(
+            f"fused_dot_nonlocal: kernel launch failed with CUDA error "
+            f"{err} ({lib.tpavi_error_string(err).decode()})")
+
+
+def _split_stage1(phi: torch.Tensor, g: torch.Tensor, ws: torch.Tensor,
+                  c_pad: int, c_lo: int) -> Callable[[], None]:
+    """Stage 1 of the reassociated order, M = φᵀg, in split K: for each
+    batch element the engine's partial products over the token chunks
+    [0, SPLIT_K), [SPLIT_K, 2·SPLIT_K), ... (one batched launch) and the
+    remainder (a second), into a (B, P, halves, rows, ld) workspace; then
+    ``tpavi_split_reduce`` sums the P partials in chunk order into ``ws``."""
+    lib = _library()
+    b, n, _ = phi.shape
+    full, rest = divmod(n, SPLIT_K)
+    parts = full + (rest > 0)
+    _, halves, rows, ld = ws.shape
+    part = torch.empty((b, parts, halves, rows, ld), dtype=ws.dtype,
+                       device=ws.device)
+    runs = []
+    for bi in range(b):
+        chunks = [(0, full, SPLIT_K)] if full else []
+        if rest:
+            chunks.append((full, 1, rest))
+        for first, count, k in chunks:
+            a_op, b_op = (t[bi, first * SPLIT_K:first * SPLIT_K + count * k]
+                          .view(count, k, t.shape[-1]) for t in (phi, g))
+            runs.append(_gemm(a_op, True, b_op, True,
+                              part[bi, first:first + count, 0], c_pad, c_pad,
+                              k, 1.0, c_lo=c_lo))
+    dev = ws.device
+
+    def run() -> None:
+        for r in runs:
+            r()
+        _raise_on(lib, lib.tpavi_split_reduce(
+            _DTYPE_CODES[ws.dtype], part.data_ptr(), part.stride(0),
+            part.stride(1), rows * ld, parts, ws.data_ptr(), ws.stride(0),
+            rows * ld, b, c_pad, c_pad, ld, dev.index,
+            torch.cuda.current_stream(dev).cuda_stream))
 
     return run
 
@@ -154,8 +216,10 @@ def _check(theta: torch.Tensor, phi: torch.Tensor, g: torch.Tensor) -> None:
 def stages(theta: torch.Tensor, phi: torch.Tensor, g: torch.Tensor
            ) -> tuple[str, Callable[[], None], Callable[[], None],
                       torch.Tensor]:
-    """The two launches of one call on CUDA operands, with the output they
-    fill: ``(order, stage1, stage2, out)``. Run stage1, then stage2."""
+    """The two stages of one call on CUDA operands, with the output they
+    fill: ``(order, stage1, stage2, out)``. Run stage1, then stage2. Stage
+    1 is one launch, or in split K (N > 2·SPLIT_K in the reassociated
+    order) the partial products' launches and their sum's."""
     _check(theta, phi, g)
     b, n, c = theta.shape
     dt = theta.dtype
@@ -174,7 +238,12 @@ def stages(theta: torch.Tensor, phi: torch.Tensor, g: torch.Tensor
                      dtype=dt, device=theta.device)
     c_lo = ws[0, 0].numel() if halves == 2 else 0
     split_ws = ws.view(b * halves, *ws.shape[2:])
-    if reassociated(n, c):
+    if reassociated(n, c) and n > 2 * SPLIT_K:
+        stage1 = _split_stage1(phi, g, ws, c_pad, c_lo)
+        stage2 = _gemm(theta, False, split_ws, True, out, n, c_pad, c_pad, n,
+                       split=2 if c_lo else 0)
+        order = "theta(phi^T g), split K"
+    elif reassociated(n, c):
         stage1 = _gemm(phi, True, g, True, ws[:, 0], c_pad, c_pad, n, 1.0,
                        c_lo=c_lo)
         stage2 = _gemm(theta, False, split_ws, True, out, n, c_pad, c_pad, n,
@@ -201,42 +270,65 @@ def _launch(theta: torch.Tensor, phi: torch.Tensor,
     return out
 
 
-class _FusedDotNonlocal(torch.autograd.Function):
-    """Kernel forward, reassociated backward (no N×N map either way):
-    dθ = dy(gᵀφ)/N, dφ = g(dyᵀθ)/N, dg = φ(θᵀdy)/N, in float32."""
+@torch.library.custom_op("glfusion_tpu_torch::fused_dot_nonlocal",
+                         mutates_args=())
+def _fused_dot_nonlocal_op(theta: torch.Tensor, phi: torch.Tensor,
+                           g: torch.Tensor) -> torch.Tensor:
+    """The registered op: the plain version for CPU operands, the kernel
+    (or an error) for any other."""
+    if theta.device.type == "cpu":
+        return fused_dot_nonlocal_plain(theta, phi, g)
+    return _launch(theta, phi, g)
 
-    @staticmethod
-    def forward(ctx, theta, phi, g):
-        ctx.save_for_backward(theta, phi, g)
-        if theta.device.type == "cpu":
-            return fused_dot_nonlocal_plain(theta, phi, g)
-        return _launch(theta, phi, g)
 
-    @staticmethod
-    def backward(ctx, dy):
-        theta, phi, g = ctx.saved_tensors
-        n = theta.shape[-2]
-        f32 = torch.float32
-        t, p, gg, d = (x.to(f32) for x in (theta, phi, g, dy))
-        gtp = torch.bmm(gg.transpose(1, 2), p)     # (B, C', C') = gᵀφ
-        dtheta = torch.bmm(d, gtp) / n
-        dyt = torch.bmm(d.transpose(1, 2), t)      # dyᵀθ
-        dphi = torch.bmm(gg, dyt) / n
-        tdy = torch.bmm(t.transpose(1, 2), d)      # θᵀdy
-        dg = torch.bmm(p, tdy) / n
-        return (dtheta.to(theta.dtype), dphi.to(phi.dtype),
-                dg.to(g.dtype))
+@_fused_dot_nonlocal_op.register_fake
+def _(theta, phi, g):
+    # shapes only: any batch (a symbolic frame axis under torch.export)
+    if theta.dim() != 3 or theta.dtype not in _DTYPE_CODES:
+        raise ValueError(f"fused_dot_nonlocal: {theta.dtype} "
+                         f"{tuple(theta.shape)}; need (B, N, C') float32 "
+                         f"or bfloat16")
+    return theta.new_empty(theta.shape)
+
+
+def _setup_context(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+def _backward(ctx, dy):
+    """Reassociated backward (no N×N map): dθ = dy(gᵀφ)/N,
+    dφ = g(dyᵀθ)/N, dg = φ(θᵀdy)/N, in float32 (JAX's ``_fdn_bwd``)."""
+    theta, phi, g = ctx.saved_tensors
+    n = theta.shape[-2]
+    f32 = torch.float32
+    t, p, gg, d = (x.to(f32) for x in (theta, phi, g, dy))
+    gtp = torch.bmm(gg.transpose(1, 2), p)     # (B, C', C') = gᵀφ
+    dtheta = torch.bmm(d, gtp) / n
+    dyt = torch.bmm(d.transpose(1, 2), t)      # dyᵀθ
+    dphi = torch.bmm(gg, dyt) / n
+    tdy = torch.bmm(t.transpose(1, 2), d)      # θᵀdy
+    dg = torch.bmm(p, tdy) / n
+    return (dtheta.to(theta.dtype), dphi.to(phi.dtype), dg.to(g.dtype))
+
+
+_fused_dot_nonlocal_op.register_autograd(_backward,
+                                         setup_context=_setup_context)
 
 
 def fused_dot_nonlocal(theta: torch.Tensor, phi: torch.Tensor,
                        g: torch.Tensor) -> torch.Tensor:
     """y[b] = (θ[b]·φ[b]ᵀ / N)·g[b] for (B, N, C') operands, trainable.
 
-    CPU tensors take :func:`fused_dot_nonlocal_plain`; CUDA tensors launch
-    the kernel (counted once a call in ``fused_dot_nonlocal.launches``) or
-    raise.
+    The registered op ``torch.ops.glfusion_tpu_torch.fused_dot_nonlocal``,
+    which ``torch.export`` records as one node (an exported program needs
+    only this module to run it). CPU tensors take
+    :func:`fused_dot_nonlocal_plain`; CUDA tensors launch the kernel
+    (counted once a call in ``fused_dot_nonlocal.launches``) or raise;
+    operands on any other device are refused here, before the op.
     """
-    return _FusedDotNonlocal.apply(theta, phi, g)
+    if theta.device.type != "cpu":
+        _check(theta, phi, g)
+    return torch.ops.glfusion_tpu_torch.fused_dot_nonlocal(theta, phi, g)
 
 
 fused_dot_nonlocal.launches = 0

@@ -9,11 +9,18 @@ The port of ``glfusion_tpu/serve.py::ClipPipeline``. Three stages overlap:
       are copied into pinned host memory without blocking; a CUDA event
       marks the copy's end and the clip is yielded once it has completed)
 
-Every clip is padded or trimmed on the host to ``clip_length`` frames, the
-JAX contract; the true frame count trims the yielded prediction.
-``serve_test_clips`` is ``--mode serve``: ``Trainer.infer``'s outputs
-through the pipeline. The AOT export arguments of the JAX pipeline
-(``from_export``) are ROADMAP Queue 1.
+A clip longer than ``clip_length`` is trimmed to it (the protocol's cap,
+as in JAX). A shorter one runs at its true frame count: JAX pads every
+clip to ``clip_length`` so that its jitted forward compiles once, which
+eager PyTorch does not need, and in eval every frame is computed alone (BN
+on running statistics, TPAVI within a frame), so padding frames change no
+mask. An exported program has a symbolic frame axis and runs the true
+length too.
+
+``forward`` replaces the model with a serving forward that takes the
+(V, T, H, W, 1) images and returns uint8 masks: an exported program
+(``utils/model_export.load_serving_forward``). ``serve_test_clips`` is
+``--mode serve``: ``Trainer.infer``'s outputs through the pipeline.
 """
 
 from __future__ import annotations
@@ -54,37 +61,55 @@ class ClipPipeline:
     cfg: the run's :class:`Config`; ``cfg.model.views`` and
         ``cfg.data.clip_length`` shape the input.
     model: the flagship ``GlobalAndLocal`` with its weights; it is moved to
-        ``device`` and put in eval mode.
+        ``device`` and put in eval mode. None when ``forward`` is given.
     depth: clips kept in flight on the card.
     threads: host decode workers.
     device: ``None`` → CUDA (raises without it); ``"cpu"`` for tests.
+    forward: a serving forward (images → uint8 masks) in place of the
+        model, e.g. a loaded export.
+    expected_hw: the spatial size an export is pinned to; other clips are
+        refused with a clear error.
     """
 
-    def __init__(self, cfg: Config, model: torch.nn.Module, depth: int = 2,
-                 threads: int = 2, device=None):
+    def __init__(self, cfg: Config, model: torch.nn.Module | None = None,
+                 depth: int = 2, threads: int = 2, device=None,
+                 forward: Callable[[torch.Tensor], torch.Tensor] | None = None,
+                 expected_hw: int | None = None):
+        if (model is None) == (forward is None):
+            raise ValueError("ClipPipeline takes a model or a forward")
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.model = model.to(self.device).eval()
+        self.model = None if model is None else model.to(self.device).eval()
+        self._forward = forward
         self.depth = max(1, depth)
         self.threads = max(1, threads)
+        self._expected_hw = expected_hw
 
     # ------------------------------------------------------------- helpers
 
-    def _pad_clip(self, images: np.ndarray) -> Tuple[np.ndarray, int]:
-        """Pad/trim (V, T, H, W, 1) to clip_length frames; returns the clip
-        and its true frame count."""
-        t_fix = self.cfg.data.clip_length
-        t = images.shape[1]
-        if t > t_fix:
-            return images[:, :t_fix], t_fix
-        if t == t_fix:
-            return images, t
-        pad = np.zeros((images.shape[0], t_fix - t) + images.shape[2:],
-                       images.dtype)
-        return np.concatenate([images, pad], axis=1), t
+    def _trim_clip(self, images: np.ndarray) -> Tuple[np.ndarray, int]:
+        """Trim (V, T, H, W, 1) to ``clip_length`` frames; returns the clip
+        and its frame count."""
+        if self._expected_hw is not None and (
+                images.shape[2:4] != (self._expected_hw, self._expected_hw)):
+            raise ValueError(
+                f"clip spatial size {images.shape[2:4]} does not match the "
+                f"AOT export's pinned {self._expected_hw}²: serve clips at "
+                f"the exported size, re-export with --export-hw, or serve "
+                f"the live checkpoint (no --from-export)")
+        images = images[:, :self.cfg.data.clip_length]
+        return images, images.shape[1]
+
+    def _masks(self, x: torch.Tensor) -> torch.Tensor:
+        """(V, T, H, W, 1) images on the device → (V, T, H, W, C) uint8
+        masks, logit > 0 (sigmoid > 0.5)."""
+        with torch.inference_mode():
+            if self._forward is not None:
+                return self._forward(x)
+            return (self.model(x)["mask"] > 0).to(torch.uint8).contiguous()
 
     def _enqueue(self, images: np.ndarray):
-        """Start one padded clip's forward; returns (host masks, event).
+        """Start one clip's forward; returns (host masks, event).
 
         On the card the upload, the forward and the copy of the uint8
         masks into pinned memory are all enqueued on the current stream;
@@ -94,12 +119,10 @@ class ClipPipeline:
         cuda = self.device.type == "cuda"
         if cuda:
             x = x.pin_memory().to(self.device, non_blocking=True)
+        masks = self._masks(x)
+        if not cuda:
+            return masks, None
         with torch.inference_mode():
-            out = self.model(x)
-            # sigmoid > 0.5 == logit > 0
-            masks = (out["mask"] > 0).to(torch.uint8).contiguous()
-            if not cuda:
-                return masks, None
             host = torch.empty(masks.shape, dtype=torch.uint8,
                                pin_memory=True)
             host.copy_(masks, non_blocking=True)
@@ -154,7 +177,7 @@ class ClipPipeline:
                 submit()
                 if images is None:
                     continue  # no requested view present: skip the clip
-                images, t_true = self._pad_clip(np.asarray(images))
+                images, t_true = self._trim_clip(np.asarray(images))
                 inflight.append((cid, t_true, *self._enqueue(images)))
 
     # --------------------------------------------------------- conveniences
@@ -198,7 +221,7 @@ class ClipPipeline:
 
     def predict_one(self, images: np.ndarray) -> np.ndarray:
         """Serial single-clip prediction (no pipelining): uint8 masks."""
-        images, t_true = self._pad_clip(np.asarray(images))
+        images, t_true = self._trim_clip(np.asarray(images))
         return self._fetch(*self._enqueue(images), t_true)
 
     def predict_paths(
@@ -209,19 +232,50 @@ class ClipPipeline:
         return self.predict_iter(clips, self.decode_paths)
 
 
+def export_pipeline_kwargs(from_export: str, cfg: Config,
+                           device=None) -> Dict[str, Any]:
+    """Load a saved export and check it against this run's configuration
+    (JAX ``serve.py::export_pipeline_kwargs``): the views and the class
+    count must match. Returns :class:`ClipPipeline` keyword arguments:
+    ``forward`` and ``expected_hw``."""
+    from glfusion_tpu_torch.utils import model_export
+
+    meta = model_export.read_meta(from_export)  # checked before the load
+    if meta.get("views") and list(meta["views"]) != list(cfg.model.views):
+        raise ValueError(
+            f"export {from_export} was built for views {meta['views']} "
+            f"but this run is configured for {list(cfg.model.views)}")
+    if meta.get("num_classes") not in (None, cfg.model.num_classes):
+        raise ValueError(
+            f"export {from_export} predicts {meta['num_classes']} "
+            f"classes but this run is configured for "
+            f"{cfg.model.num_classes}")
+    forward, _ = model_export.load_serving_forward(from_export, device)
+    return {"forward": forward,
+            "expected_hw": meta.get("input_hw") or meta.get("crop_hw")}
+
+
 def serve_test_clips(trainer, out_dir: str = "./predictions",
-                     depth: int = 2, threads: int = 2) -> dict:
+                     depth: int = 2, threads: int = 2,
+                     from_export: str | None = None) -> dict:
     """``--mode serve``: ``Trainer.infer`` through the pipeline, with timing.
 
     The same files as ``Trainer.infer`` (``pred_<clip>_v<view>.nii.gz``,
     (5, H, W, T) uint8), with decode, forward and fetch overlapped; returns
-    ``{"written", "clips", "clips_per_s", "wall_s"}``.
+    ``{"written", "clips", "clips_per_s", "wall_s"}``. ``from_export``
+    serves a saved export (``--mode export``) instead of the live weights.
     """
     from pathlib import Path
 
     cfg = trainer.cfg
-    pipe = ClipPipeline(cfg, trainer.model, depth=depth, threads=threads,
-                        device=trainer.device)
+    if from_export is None:
+        pipe = ClipPipeline(cfg, trainer.model, depth=depth, threads=threads,
+                            device=trainer.device)
+    else:
+        pipe = ClipPipeline(cfg, depth=depth, threads=threads,
+                            device=trainer.device,
+                            **export_pipeline_kwargs(from_export, cfg,
+                                                     trainer.device))
     clips = [(cid, dict(trainer.test_infos[cid]["views_images"]))
              for cid in sorted(trainer.test_infos)]
     out = Path(out_dir)

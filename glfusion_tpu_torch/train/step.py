@@ -25,14 +25,23 @@ The options of the JAX step (``config.TrainConfig``), with its exclusions:
   the cycle pass once, then one Adam step; BN running statistics thread
   microbatch → microbatch → cycle;
 * ``remat_supervised=False`` with ``model.remat``: the supervised forward
-  runs without recompute (``models/resnet.no_remat``).
-
-``temporal``, CPS and ``checkify`` are ROADMAP Queue 1.
+  runs without recompute (``models/resnet.no_remat``);
+* ``temporal``: the cycle forward folds the clip's frames into the
+  attention's token axis (``is_video``);
+* ``cps=True`` (the model is ``GlobalAndLocalCPS``): both networks' BCE,
+  plus ``cps_weight`` × each network's BCE against the other's thresholded
+  predictions, which carry no gradient;
+* ``checkify``: the loss and the float32 global gradient norm must be
+  finite. As in JAX the verdict is read one step late (``checkify_flush``
+  reads the last one at the epoch's end), so no step waits for its own:
+  the two numbers are copied to pinned host memory behind an event, which
+  the next step's call waits on after it has enqueued its own work.
 """
 
 from __future__ import annotations
 
 import contextlib
+import math
 from typing import Callable, Dict
 
 import torch
@@ -43,8 +52,6 @@ from glfusion_tpu_torch.train.losses import (bce_with_logits_sum,
                                              dense_seg_cycle_loss,
                                              seg_cycle_loss)
 from glfusion_tpu_torch.train.metrics import confusion_counts
-
-_UNPORTED = ("temporal", "checkify")
 
 
 def supervised_view_indices(cfg: Config) -> tuple:
@@ -59,13 +66,12 @@ def supervised_view_indices(cfg: Config) -> tuple:
     return tuple(views.index(v) for v in cfg.train.test_views)
 
 
-def _check_supported(cfg: Config) -> None:
-    """JAX's exclusions (``train/step.py:83-97``), after the options the
-    port has not taken yet."""
+def _check_supported(cfg: Config, cps: bool) -> None:
+    """JAX's exclusions (``train/step.py:83-97``)."""
     tc = cfg.train
-    on = [k for k in _UNPORTED if getattr(tc, k)]
-    if on:
-        raise NotImplementedError(f"train options {on} are ROADMAP Queue 1")
+    if tc.fuse_passes and (cps or tc.temporal):
+        raise ValueError("fuse_passes is exclusive of CPS/temporal "
+                         "(see TrainConfig.fuse_passes)")
     accum = int(tc.grad_accum)
     if accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {accum}")
@@ -95,24 +101,84 @@ def cycle_loss(cfg: Config, f4_global: torch.Tensor,
     return total
 
 
+class FinitenessCheck:
+    """``checkify``'s two checks, read one step late (JAX
+    ``train/step.py:338-389``): ``record`` queues a step's loss and float32
+    global gradient norm and then reads the previous step's; ``flush``
+    reads what is left. A non-finite value raises with JAX's message."""
+
+    def __init__(self):
+        self.pending = []
+
+    def record(self, loss: torch.Tensor, grads) -> None:
+        vals = torch.stack([
+            loss.detach().float(),
+            torch.nn.utils.get_total_norm(
+                [g.float() for g in grads]).float()])
+        event = None
+        if vals.is_cuda:
+            host = torch.empty(2, dtype=torch.float32, pin_memory=True)
+            host.copy_(vals, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
+            vals = host
+        previous, self.pending = self.pending, [(vals, event)]
+        for item in previous:
+            self._throw(*item)
+
+    def flush(self) -> None:
+        while self.pending:
+            self._throw(*self.pending.pop(0))
+
+    @staticmethod
+    def _throw(vals: torch.Tensor, event) -> None:
+        if event is not None:
+            event.synchronize()  # that step's copy only, not later work
+        loss, gnorm = vals.tolist()
+        if not math.isfinite(loss):
+            raise RuntimeError(f"non-finite training loss {loss}")
+        if not math.isfinite(gnorm):
+            raise RuntimeError(f"non-finite gradient norm {gnorm}")
+
+
 def make_train_step(cfg: Config, model: torch.nn.Module,
-                    optimizer: torch.optim.Optimizer) -> Callable:
+                    optimizer: torch.optim.Optimizer,
+                    cps: bool = False) -> Callable:
     """``train_step(batch, generator) -> metrics`` (tensors on the device).
 
     batch: images (V, B·grad_accum, H, W, 1), masks (V, B·grad_accum, H, W,
     5) and, when the cycle loss is on, clips (V, T, H, W, 1). The generator
     draws the sampled cycle starts. Metrics: loss, seg_loss, cyc_loss and
-    per-view confusion counts tp/fp/fn/tn (V,).
+    per-view confusion counts tp/fp/fn/tn (V,). ``cps``: ``model`` is the
+    ``GlobalAndLocalCPS`` twin. With ``cfg.train.checkify`` the step has a
+    ``checkify_flush()`` that raises on the last step's non-finite loss or
+    gradient norm.
     """
-    _check_supported(cfg)
+    _check_supported(cfg, cps)
     test_idx = supervised_view_indices(cfg)
     tc = cfg.train
     accum = int(tc.grad_accum)
     twin = cfg.model.remat and not tc.remat_supervised
+    checker = FinitenessCheck() if tc.checkify else None
 
-    def seg_loss(logits, masks):
-        return sum(bce_with_logits_sum(logits[vi], masks[vi])
+    def seg_loss(out, masks):
+        """Σ over the test views of the BCE-sum; under CPS both networks'
+        and ``cps_weight`` × the cross pseudo-supervision terms (JAX
+        ``step.py:145-160``)."""
+        loss = sum(bce_with_logits_sum(out["mask"][vi], masks[vi])
                    for vi in test_idx)
+        if not cps:
+            return loss
+        pseudo1 = (out["mask"].detach() > 0.0).to(masks.dtype)
+        pseudo2 = (out["mask_2"].detach() > 0.0).to(masks.dtype)
+        cps_loss = 0.0
+        for vi in test_idx:
+            loss = loss + bce_with_logits_sum(out["mask_2"][vi], masks[vi])
+            cps_loss = (cps_loss
+                        + bce_with_logits_sum(out["mask"][vi], pseudo2[vi])
+                        + bce_with_logits_sum(out["mask_2"][vi],
+                                              pseudo1[vi]))
+        return loss + tc.cps_weight * cps_loss
 
     def train_step(batch: Dict[str, torch.Tensor],
                    generator: torch.Generator) -> Dict[str, torch.Tensor]:
@@ -124,7 +190,7 @@ def make_train_step(cfg: Config, model: torch.nn.Module,
         if tc.fuse_passes and clips is not None:
             out = model(torch.cat([images, clips.to(images.dtype)], dim=1),
                         sup_count=images.shape[1])
-            seg = seg_loss(out["mask"], masks)
+            seg = seg_loss(out, masks)
             cyc = cycle_loss(cfg, out["f4_global"], generator)
             (seg + tc.cycle_weight * cyc).backward()
             mask_logits = out["mask"].detach()
@@ -139,7 +205,7 @@ def make_train_step(cfg: Config, model: torch.nn.Module,
                 part = slice(a * mb, (a + 1) * mb)
                 with no_remat(model) if twin else contextlib.nullcontext():
                     out = model(images[:, part])
-                s = seg_loss(out["mask"], masks[:, part])
+                s = seg_loss(out, masks[:, part])
                 s.backward()
                 seg = seg + s.detach()
                 logits.append(out["mask"].detach())
@@ -147,18 +213,25 @@ def make_train_step(cfg: Config, model: torch.nn.Module,
             mask_logits = torch.cat(logits, dim=1)
             if clips is not None:
                 light = {"features_only": True} if tc.cycle_light else {}
+                if tc.temporal:
+                    light["is_video"] = True
                 out2 = model(clips, **light)
                 cyc = cycle_loss(cfg, out2["f4_global"], generator)
                 (tc.cycle_weight * cyc).backward()
                 del out2
+        seg, cyc = seg.detach(), cyc.detach()
+        total = seg + tc.cycle_weight * cyc
+        if checker is not None:
+            checker.record(total, [p.grad for p in model.parameters()
+                                   if p.grad is not None])
         optimizer.step()
         with torch.no_grad():
-            seg, cyc = seg.detach(), cyc.detach()
             counts = confusion_counts((mask_logits > 0.0).float(), masks,
                                       dim=tuple(range(1, mask_logits.dim())))
-        return {"loss": seg + tc.cycle_weight * cyc, "seg_loss": seg,
-                "cyc_loss": cyc, **counts}
+        return {"loss": total, "seg_loss": seg, "cyc_loss": cyc, **counts}
 
+    if checker is not None:
+        train_step.checkify_flush = checker.flush
     return train_step
 
 

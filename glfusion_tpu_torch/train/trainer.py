@@ -44,7 +44,7 @@ from glfusion_tpu_torch.data.pipeline import (AlignedClipLoader, ByteLRU,
                                               preprocess_batch,
                                               view_ids_tuple)
 from glfusion_tpu_torch.data.prefetch import prefetch
-from glfusion_tpu_torch.models import GlobalAndLocal
+from glfusion_tpu_torch.models import GlobalAndLocalCPS, build_model
 from glfusion_tpu_torch.serve import resolve_device
 from glfusion_tpu_torch.train.metrics import overlap_metrics
 from glfusion_tpu_torch.train.step import make_eval_step, make_train_step
@@ -91,8 +91,9 @@ class Trainer:
         ``data_list_dir``; None writes the synthetic corpus (seeded by
         ``cfg.train.seed``) into a temporary directory.
     device: None → CUDA (raises without it); ``"cpu"`` runs on the CPU.
-    model: an already built flagship to train (for instance with fused
-        stems swapped in); None builds ``GlobalAndLocal(cfg.model)``.
+    model: an already built flagship or CPS twin to train (for instance
+        with fused stems swapped in); None builds ``cfg.model``'s
+        (``models.build_model``).
     """
 
     def __init__(self, cfg: Config, data_paths: Optional[Dict[str, str]] = None,
@@ -132,15 +133,20 @@ class Trainer:
                                               views, cfg, seed=seed)
         self.view_ids = view_ids_tuple(views)
 
-        self.model = (model if model is not None
-                      else GlobalAndLocal(cfg.model)).to(self.device)
+        if model is None:
+            model, self.cps = build_model(cfg.model)
+        else:
+            self.cps = isinstance(model, GlobalAndLocalCPS)
+        self.model = model.to(self.device)
+        self._check_options()
         # one update takes batch_size·grad_accum frames a view
         self.update_frames = cfg.train.batch_size * cfg.train.grad_accum
         self.steps_per_epoch = max(
             len(self.train_loader) // self.update_frames, 1)
         self.optimizer = make_optimizer(cfg, self.model.parameters())
         self.scheduler = make_scheduler(cfg, self.optimizer)
-        self.train_step = make_train_step(cfg, self.model, self.optimizer)
+        self.train_step = make_train_step(cfg, self.model, self.optimizer,
+                                          cps=self.cps)
         self.eval_step = make_eval_step(cfg, self.model)
         self.ckpt = CheckpointManager(cfg.train.save_dir,
                                       max_to_keep=cfg.train.ckpt_keep)
@@ -151,6 +157,26 @@ class Trainer:
         log_dir.mkdir(parents=True, exist_ok=True)
         self._metrics_path = log_dir / "metrics.jsonl"
         self.summary = SummaryWriter(str(log_dir))
+
+    def _check_options(self) -> None:
+        """JAX's exclusions of the CPS twin (``trainer.py:84-104``)."""
+        tc = self.cfg.train
+        if tc.cycle_light and self.cps:
+            raise ValueError(
+                "cycle_light requires the plain glfusion arch (non-CPS; "
+                "not fg_bg/local_only, whose cycle features need the "
+                "classifier heads): the fast cycle forward computes "
+                "f4_global directly")
+        if tc.temporal and self.cps:
+            raise ValueError(
+                "temporal (video attention on cycle clips) requires the "
+                "plain glfusion arch: only GlobalAndLocal folds frames "
+                "into the attention token axis (is_video)")
+        if tc.fuse_passes and self.cps:
+            raise ValueError(
+                "fuse_passes requires the plain glfusion arch (non-CPS; "
+                "not fg_bg/local_only): the merged pass slices the head "
+                "tail onto the supervised frames only")
 
     # ------------------------------------------------------------- lifecycle
 
@@ -188,6 +214,10 @@ class Trainer:
         reference ``main.py:454-457``) into the weights and BN statistics.
         The optimizer is untouched, as in JAX: the reference never saved
         it."""
+        if self.cps:
+            raise ValueError("--torch-ckpt requires the plain glfusion arch "
+                             "(the converter maps Global_and_Local's "
+                             "state-dict names)")
         self.model.load_state_dict(load_checkpoint(path))
         self._log(f"loaded torch checkpoint {path}")
 
@@ -196,6 +226,10 @@ class Trainer:
         ResNet-50, as the reference does (``utils/imagenet_init.py``): the
         1-channel stem conv, the heads and the attentions keep their
         initialization."""
+        if self.cps:
+            raise ValueError("--imagenet-backbone requires the plain "
+                             "glfusion arch (the mapping targets the "
+                             "flagship's stacked-view backbone tree)")
         from glfusion_tpu_torch.utils.imagenet_init import (
             load_imagenet_backbone, merge_backbone)
 
@@ -308,6 +342,11 @@ class Trainer:
                     self.train_batch(host_batch, cycle_iter, gen), gen)
             agg = metrics if agg is None else _sum(agg, metrics)
             steps += 1
+        # --checkify reads each step's verdict one step late; the last one
+        # is read here, so a non-finite step raises before the epoch ends
+        flush = getattr(self.train_step, "checkify_flush", None)
+        if flush is not None:
+            flush()
         if agg is None:
             return {"loss": 0.0, "seg_loss": 0.0, "cyc_loss": 0.0,
                     "dice": 0.0, "steps": 0}

@@ -125,8 +125,15 @@ def _view(tree: Tree, i: int):
 
 def state_dict_from_jax(variables: Mapping[str, Tree],
                         cfg: ModelConfig) -> Dict[str, torch.Tensor]:
-    """JAX ``GlobalAndLocal`` ``{'params', 'batch_stats'}`` → port state dict."""
+    """JAX ``GlobalAndLocal`` ``{'params', 'batch_stats'}`` → port state
+    dict; JAX ``GlobalAndLocalCPS`` variables (``net1``, ``net2`` trees) →
+    the port twin's ``net1.*``, ``net2.*``."""
     params, stats = variables["params"], variables["batch_stats"]
+    if "net1" in params:
+        return {f"{net}.{k}": t for net in ("net1", "net2")
+                for k, t in state_dict_from_jax(
+                    {"params": params[net], "batch_stats": stats[net]},
+                    cfg).items()}
     sd: Dict[str, torch.Tensor] = {}
     for i, v in enumerate(cfg.views):
         p, s = _view(params, i), _view(stats, i)

@@ -17,13 +17,14 @@ import pytest
 import torch
 
 from _torch_port_common import (TINY_MODEL, TOL, one_torch_thread,  # noqa: F401
-                                tiny_flagship, to_numpy)
+                                random_variables, tiny_flagship, to_numpy)
 from glfusion_tpu import config as jconfig
 from glfusion_tpu.config import ModelConfig as JModelConfig
+from glfusion_tpu.models.glfusion import GlobalAndLocalCPS as JGlobalAndLocalCPS
 from glfusion_tpu.utils.torch_convert import convert_state_dict
 from glfusion_tpu_torch import config as pconfig
 from glfusion_tpu_torch.config import ModelConfig
-from glfusion_tpu_torch.models import GlobalAndLocal
+from glfusion_tpu_torch.models import GlobalAndLocal, GlobalAndLocalCPS
 from glfusion_tpu_torch.utils.convert import (load_checkpoint,
                                               state_dict_from_jax)
 
@@ -40,9 +41,15 @@ def jax_case():
 
 
 @pytest.fixture(scope="module")
-def jax_eval(jax_case):
-    jm, v, x = jax_case
-    return jax.jit(lambda v, x: jm.apply(v, x, False))(v, jnp.asarray(x))
+def jax_apply(jax_case):
+    jm = jax_case[0]
+    return jax.jit(lambda v, x: jm.apply(v, x, False))
+
+
+@pytest.fixture(scope="module")
+def jax_eval(jax_case, jax_apply):
+    _, v, x = jax_case
+    return jax_apply(v, jnp.asarray(x))
 
 
 def _port(v, use_pallas_fusion=False) -> GlobalAndLocal:
@@ -277,3 +284,52 @@ def test_forward_bf16_matches_jax(jax_case):
         err = np.abs(got - want).max() / np.abs(want).max()
         norm = np.linalg.norm(got - want) / np.linalg.norm(want)
         assert err <= 5e-2 and norm <= 2e-2, (k, err, norm)
+
+
+def test_forward_is_video_matches_jax(jax_case):
+    """``is_video`` (the ``temporal`` option's cycle pass): the clip's 2
+    frames join the attention's token axis, (2, 3, h, w, C) → (1, 6·h·w,
+    C), in both attentions. Eval, through the kernel's path (its plain
+    version on the CPU, at batch 1), against JAX's GlobalAndLocal with
+    ``is_video=True`` on the same weights; every output within TOL. The
+    fold is not the per-frame forward: ``f4_global`` moves."""
+    jm, v, x = jax_case
+    ref = jax.jit(lambda v, x: jm.apply(v, x, False, is_video=True))(
+        v, jnp.asarray(x))
+    m = _port(v, use_pallas_fusion=True).eval()
+    with torch.no_grad():
+        out = m(torch.from_numpy(x), is_video=True)
+        per_frame = m(torch.from_numpy(x))
+    for k in OUTPUTS:
+        np.testing.assert_allclose(out[k].numpy(), np.asarray(ref[k]),
+                                   err_msg=k, **TOL)
+    assert not np.allclose(out["f4_global"].numpy(),
+                           per_frame["f4_global"].numpy(), **TOL)
+
+
+def test_cps_twin_matches_two_jax_flagships(jax_case, jax_apply):
+    """The port's GlobalAndLocalCPS loaded from JAX GlobalAndLocalCPS
+    variables: ``net1`` and ``net2`` trees (their structure from JAX's
+    own module, traced with ``jax.eval_shape``), each JAX's flagship tree.
+    ``mask`` is net 1's, ``mask_2`` net 2's, ``f4_global`` and ``f4_local``
+    net 1's: each against JAX's flagship on that net's variables, within
+    TOL, eval."""
+    jm, v, x = jax_case
+    v2 = random_variables(lambda: jm.init(jax.random.PRNGKey(0),
+                                          jnp.asarray(x), False), 8)
+    twin = {k: {"net1": v[k], "net2": v2[k]} for k in v}
+    want_tree = jax.eval_shape(lambda: JGlobalAndLocalCPS(JCFG).init(
+        jax.random.PRNGKey(0), jnp.asarray(x), False))
+    assert (jax.tree_util.tree_structure(twin)
+            == jax.tree_util.tree_structure(
+                {k: want_tree[k] for k in twin}))
+    m = GlobalAndLocalCPS(CFG)
+    m.load_state_dict(state_dict_from_jax(twin, CFG))
+    with torch.no_grad():
+        out = m.eval()(torch.from_numpy(x))
+    r1, r2 = jax_apply(v, jnp.asarray(x)), jax_apply(v2, jnp.asarray(x))
+    for k, ref in (("mask", r1["mask"]), ("mask_2", r2["mask"]),
+                   ("f4_global", r1["f4_global"]),
+                   ("f4_local", r1["f4_local"])):
+        np.testing.assert_allclose(out[k].numpy(), np.asarray(ref),
+                                   err_msg=k, **TOL)
