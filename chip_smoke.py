@@ -85,6 +85,15 @@ nonzero:
           epochs, ``--torch-ckpt`` on U's last file, infer, visual and
           serve on R's weights; checkpoint size, save, load and sweep
           times, clips/s and the disk's peak.
+  variants  the flagship's eight ablations, float32 with K1 and the fused
+          stems: each trains 2 steps through ``Trainer`` and runs an eval
+          forward; K1's calls a step (4, 2 or 0 by the branches it runs)
+          and the stems' launches asserted per variant; K1 in situ in
+          ``fg_bg``, ``conv_merge`` and ``local_only``; in
+          ``early_fusion`` the stem's dx and ``early_mix``'s gradient
+          against the plain stem on the step's tensors; the eval forward
+          against the plain stems and the reassociated order; s/step and
+          peak memory per variant.
 
 The last lines are the kernels' record, the card's ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``. Without CUDA, or outside a checkout, it
@@ -93,6 +102,7 @@ exits nonzero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import gc
@@ -204,6 +214,15 @@ BF16_VARIANTS = (("plain", {}), ("cycle_light", {"cycle_light": True}),
 # against the largest 0.16). The restore itself is checked bit for bit
 # (``state_diff``)
 RESUME_NOISE, RESUME_FLOOR, RESUME_RERUNS = 10, 1e-6, 3
+# variants: the flagship's ablations, VARIANT_STEPS steps each on the train
+# phase's corpus (train_repeat VARIANT_REPEAT: 2 train patients × 8 = 16
+# frames, 2 batches of 8); K1's calls a step, 2 passes × the attentions
+# each variant runs (JAX glfusion.py:233-259); K1 held in situ in these
+VARIANT_STEPS, VARIANT_REPEAT = 2, 8
+VARIANT_K1 = {"cyc_nofusion": 4, "conv_merge": 4, "fg_bg": 4,
+              "global_only": 2, "global_only_cyc_nofusion": 2,
+              "local_only": 2, "early_fusion": 0, "late_fusion": 0}
+VARIANT_IN_SITU_K1 = ("fg_bg", "conv_merge", "local_only")
 # infer against serve: a voxel's mask may differ only where the clip's
 # logit there lies this close to the threshold 0
 MASK_FLIP_LOGIT = 1e-3
@@ -1263,44 +1282,55 @@ def step_paths(torch, cfg, trainer, batch, state, tol, sample=0) -> list:
     return runs
 
 
-def kernel_step(torch, cfg, trainer, batch, state, sample=0):
-    """The same step through the kernels (fused stems, K1) on ``state``,
-    with every kernel call of the step held against its plain version on
-    the step's own tensors (``in_situ``): (metrics, gradients, in situ)."""
+@contextlib.contextmanager
+def kernel_recorder(torch):
+    """Within: each K1 launch is held against its plain version on its own
+    operands (``k1``: (θ's shape, relative norm error)), and each fused
+    stem train call's inputs and output gradient are kept for
+    ``stem_replay`` (``stem``), in call order. A K1 call is launched once,
+    as without the recorder, so launch counts do not move."""
     from glfusion_tpu_torch.experiments import stem_module
     from glfusion_tpu_torch.ops import tpavi_fused
 
-    trainer.model.load_state_dict(state)
     launch, stem_train = tpavi_fused._launch, stem_module.fused_stem_train
-    k1, stems = [], []
+    rec = {"k1": [], "stem": []}
 
     def k1_recorded(theta, phi, g):
         # the kernel's own output in the step against its plain version
         y = launch(theta, phi, g)
         with torch.no_grad():
-            k1.append((tuple(theta.shape), rel_norm(
+            rec["k1"].append((tuple(theta.shape), rel_norm(
                 y, tpavi_fused.fused_dot_nonlocal_plain(theta, phi, g))))
         return y
 
     def stem_recorded(x, weight, bias, gamma, beta):
         out, mean, var = stem_train(x, weight, bias, gamma, beta)
-        rec = {"inputs": [t.detach().clone() for t in
-                          (x, weight, bias, gamma, beta)]}
-        out.register_hook(lambda dy: rec.__setitem__("dy", dy.detach()
-                                                     .clone()))
-        stems.append(rec)
+        call = {"inputs": [t.detach().clone() for t in
+                           (x, weight, bias, gamma, beta)]}
+        out.register_hook(lambda dy: call.__setitem__("dy", dy.detach()
+                                                      .clone()))
+        rec["stem"].append(call)
         return out, mean, var
 
     tpavi_fused._launch = k1_recorded
     stem_module.fused_stem_train = stem_recorded
     try:
-        m_k, g_k = _step_run(torch, cfg, trainer, trainer.model, batch,
-                             "pallas", sample)
+        yield rec
     finally:
         tpavi_fused._launch = launch
         stem_module.fused_stem_train = stem_train
-    stem_err = [stem_replay(torch, rec) for rec in stems if "dy" in rec]
-    return m_k, g_k, {"k1": k1, "stem": stem_err}
+
+
+def kernel_step(torch, cfg, trainer, batch, state, sample=0):
+    """The same step through the kernels (fused stems, K1) on ``state``,
+    with every kernel call of the step held against its plain version on
+    the step's own tensors (``in_situ``): (metrics, gradients, in situ)."""
+    trainer.model.load_state_dict(state)
+    with kernel_recorder(torch) as rec:
+        m_k, g_k = _step_run(torch, cfg, trainer, trainer.model, batch,
+                             "pallas", sample)
+    stem_err = [stem_replay(torch, r) for r in rec["stem"] if "dy" in r]
+    return m_k, g_k, {"k1": rec["k1"], "stem": stem_err}
 
 
 STEM_TIE = 1e-4  # normalized-activation gap below which routing is rounding's
@@ -1335,7 +1365,7 @@ def unambiguous_dy(torch, rec):
     return dy.masked_fill(ambiguous, 0), ambiguous.float().mean().item()
 
 
-def stem_replay(torch, rec) -> dict:
+def stem_replay(torch, rec, derive=None) -> dict:
     """One stem call of a step replayed on its recorded inputs and output
     gradient: the kernels' backward (the same kernels on the same inputs:
     the step's own numbers, the stem's backward being deterministic), the
@@ -1343,8 +1373,11 @@ def stem_replay(torch, rec) -> dict:
     to last and last to first): per gradient, and for the conv weight also
     tap by tap (each of the 49 taps over all channels: an error in one tap
     shows there undiluted), the kernels' relative norm error against the
-    plain stem and the second paths' largest (the noise). The conv bias is
-    measured against the weight gradient's norm, as in ``stem_check``.
+    plain stem and the second paths' largest (the noise). A bias gradient
+    (the conv's, or a derived one) is measured against its weight
+    gradient's norm, as in ``stem_check``: under the train BN it cancels.
+    ``derive(dx)`` adds gradients that are functions of dx (a parameter
+    upstream of the stem), measured the same way.
     The output gradient is zero at the pool windows whose routing rounding
     decides (``unambiguous_dy``), so that every path computes the same
     function."""
@@ -1377,10 +1410,13 @@ def stem_replay(torch, rec) -> dict:
         taps = g["dweight"].reshape(weight.shape[0], -1)
         g.update({f"dweight_tap{t}": taps[:, t]
                   for t in range(taps.shape[1])})
+        if derive is not None:
+            g.update(derive(g["dx"]))
 
     def err(g, k):
-        if k == "dbias":
-            return ((g[k] - want[k]).norm() / want["dweight"].norm()).item()
+        if k.endswith("bias"):  # against its weight's gradient
+            return ((g[k] - want[k]).norm()
+                    / want[k[:-len("bias")] + "weight"].norm()).item()
         return rel_norm(g[k], want[k])
 
     keys = list(want)
@@ -1399,15 +1435,17 @@ def in_situ_verdict(in_situ, tol) -> dict:
     error in one kernel shows."""
     bad = [("k1", shape, e) for shape, e in in_situ["k1"]
            if not (math.isfinite(e) and e <= tol["kernel"])]
-    ratios = [e / tol["kernel"] for _, e in in_situ["k1"]]
+    ratios = [(e / tol["kernel"], ("k1", i))
+              for i, (_, e) in enumerate(in_situ["k1"])]
     for i, r in enumerate(in_situ["stem"]):
         for k, e in r["err"].items():
             ratio = e / (tol["noise"] * r["noise"][k] + tol["stem"])
-            ratios.append(ratio)
+            ratios.append((ratio, ("stem", i, k)))
             if not (math.isfinite(ratio) and ratio <= 1):
                 bad.append(("stem", i, r["batch"], k, e, r["noise"][k]))
+    worst = max(ratios, default=(0.0, None), key=lambda x: x[0])
     return {"ok": not bad, "bad": bad[:5],
-            "worst_ratio": max(ratios, default=0.0),
+            "worst_ratio": worst[0], "worst_call": worst[1],
             "k1_calls": len(in_situ["k1"]),
             "k1_worst_err": max((e for _, e in in_situ["k1"]), default=0.0),
             "stem_calls": len(in_situ["stem"])}
@@ -1966,6 +2004,144 @@ def cps_phase(torch, data_paths) -> dict:
     return c
 
 
+def variants_phase(torch, data_paths) -> dict:
+    """The flagship's eight ablations at full width in float32 with K1 and
+    a ``FusedIEKDStem`` in each view: each trains ``VARIANT_STEPS`` steps
+    through ``Trainer`` on the train phase's corpus, then runs one eval
+    forward. Counted from 0 over both: K1's calls a step
+    (``VARIANT_K1``) and an eval forward (half that), the stems' forward
+    and backward in each view each pass; finite losses. In the steps of
+    ``VARIANT_IN_SITU_K1`` each K1 call is held against its plain version
+    on its own operands (those variants' s/step include that comparison:
+    ``recorded``); in ``early_fusion`` each stem call of the first
+    step (its dx now reaches the ``early_mix`` convs) is replayed
+    (``stem_replay``) with ``early_mix``'s weight and bias gradients
+    derived from each path's dx. The eval forward's ``f4_global``,
+    ``f4_local`` and mask logits against the same model through the plain
+    stems and the reassociated attention, within the serve phase's
+    limits."""
+    from glfusion_tpu_torch.experiments import stem_fused, stem_module
+    from glfusion_tpu_torch.experiments.stem_module import swap_in_fused_stems
+    from glfusion_tpu_torch.models import GlobalAndLocal
+
+    records, total = {}, {}
+    for variant, k1_step in VARIANT_K1.items():
+        cfg = _flagship_config()
+        cfg = cfg.replace(
+            model=dataclasses.replace(cfg.model, variant=variant),
+            data=dataclasses.replace(cfg.data, train_repeat=VARIANT_REPEAT))
+        torch.manual_seed(0)
+        model = GlobalAndLocal(cfg.model)
+        swap_in_fused_stems(model)
+        trainer, step_s = _timed_trainer(torch, cfg, data_paths, model)
+        mixes = []
+        if variant == "early_fusion":  # each call's input: the V images
+            for conv in model.early_mix.values():
+                conv.register_forward_hook(
+                    lambda m, args, out: mixes.append(args[0].detach()))
+        host = next(trainer.train_loader.batches(cfg.train.batch_size, 1))
+        with trainer.step_randomness(1, 0) as gen:
+            images = trainer.train_batch(host, None, gen)["images"]
+
+        # ---- the main path, counted: the steps, then one eval forward
+        in_situ = variant in VARIANT_IN_SITU_K1 or variant == "early_fusion"
+        recorder = (kernel_recorder(torch) if in_situ else
+                    contextlib.nullcontext({"k1": [], "stem": []}))
+        _free(torch)
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        with recorder as rec:
+            metrics = trainer.train()
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            model.eval()
+            with torch.inference_mode():
+                out_k = model(images)
+        c = _counts(torch)
+        steps = metrics["steps"]
+        views = len(cfg.model.views)
+        check(steps == VARIANT_STEPS, f"{variant}: {steps} steps")
+        for k in ("loss", "seg_loss", "cyc_loss"):
+            check(math.isfinite(metrics[k]) and metrics[k] > 0,
+                  f"{variant}: {k} = {metrics[k]}")
+        fwd, bwd = 2 * views * steps, 2 * views * steps
+        want = {"stem_stats": fwd, "stem_norm_pool": fwd + views,
+                "stem_bwd1": bwd, "stem_bwd2": bwd, "stem_dx_reduce": bwd,
+                "fused_dot_nonlocal": k1_step * steps + k1_step // 2}
+        check(c == want, f"{variant}: launches {c}, want {want}")
+        for k in c:
+            total[k] = total.get(k, 0) + c[k]
+
+        # ---- the eval forward against the plain stems and reassoc order
+        attns = [getattr(model, a) for a in ("global_attn", "local_attn")
+                 if hasattr(model, a)]
+        check(len(attns) == k1_step // 2, f"{variant}: {len(attns)} attns")
+        saved = stem_module.fused_stem_eval
+        stem_module.fused_stem_eval = stem_fused.fused_stem_eval_plain
+        for attn in attns:
+            attn.attn_impl = "reassoc"
+        try:
+            with torch.inference_mode():
+                out_p = model(images)
+        finally:
+            stem_module.fused_stem_eval = saved
+            for attn in attns:
+                attn.attn_impl = "pallas"
+        agree = {}
+        for k, lim in (("f4_global", 1e-4), ("f4_local", 1e-4),
+                       ("mask", 1e-3)):
+            check(bool(torch.isfinite(out_k[k]).all()), f"{variant}: {k}")
+            agree[k] = ((out_k[k] - out_p[k]).abs().max()
+                        / out_p[k].abs().max()).item()
+            check(agree[k] <= lim, f"{variant}: eval {k} kernel path vs "
+                  f"plain relative error {agree[k]} > {lim}")
+
+        rec_out = dict(steps=steps, step_s=step_s, recorded=in_situ,
+                       s_per_step_median=statistics.median(step_s[1:]
+                                                           or step_s),
+                       max_memory_allocated=peak, loss=metrics["loss"],
+                       launches=c, k1_per_step=k1_step,
+                       eval_rel_err_vs_plain=agree)
+        # ---- the kernels in situ, on the steps' own tensors
+        if variant in VARIANT_IN_SITU_K1:
+            k1 = rec["k1"][:k1_step * steps]  # the steps' calls
+            check(len(k1) == k1_step * steps, f"{variant}: K1 calls seen")
+            situ = in_situ_verdict({"k1": k1, "stem": []}, STEP_TOL)
+            check(situ["ok"], f"{variant}: K1 in situ {situ['bad']}")
+            rec_out["k1_in_situ"] = situ
+        if variant == "early_fusion":
+            calls = rec["stem"][:2 * views]  # the first step's
+            check(len(mixes) >= len(calls) and all("dy" in r for r in calls),
+                  f"early_fusion: {len(calls)} stem calls, {len(mixes)} "
+                  "early_mix inputs")
+            stems = []
+            for r, mix in zip(calls, mixes):
+                check(mix.shape[0] == r["inputs"][0].shape[0],
+                      "early_fusion: a stem call and its early_mix input")
+
+                def derive(dx, mix=mix):
+                    return {"dearly_mix_weight": torch.einsum(
+                                "bhw,bchw->c", dx[:, 0].float(), mix),
+                            "dearly_mix_bias": dx.float().sum()}
+
+                stems.append(stem_replay(torch, r, derive))
+            situ = in_situ_verdict({"k1": [], "stem": stems}, STEP_TOL)
+            check(situ["ok"] and situ["stem_calls"] == 2 * views,
+                  f"early_fusion: stem dx in situ {situ['bad']}")
+            rec_out["stem_in_situ"] = dict(
+                situ, dx_err=[r["err"]["dx"] for r in stems],
+                dx_noise=[r["noise"]["dx"] for r in stems],
+                early_mix_err=[r["err"]["dearly_mix_weight"] for r in stems],
+                early_mix_noise=[r["noise"]["dearly_mix_weight"]
+                                 for r in stems])
+        records[variant] = rec_out
+        del trainer, model, rec, out_k, out_p, images
+        _free(torch)
+    emit("variants", dtype="float32", steps=VARIANT_STEPS,
+         variants=records, launches=total)
+    return total
+
+
 def checkify_phase(torch, data_paths) -> dict:
     """``checkify`` on the float32 flagship with K1 and the fused stems:
     one epoch without it, then one with it from the same weights, for the
@@ -2477,7 +2653,7 @@ def main() -> None:
     more = [timed(name, fn, paths) for name, fn in (
         ("temporal", temporal_phase), ("cps", cps_phase),
         ("checkify", checkify_phase), ("train_bf16", train_bf16_phase),
-        ("lifecycle", lifecycle_phase))]
+        ("lifecycle", lifecycle_phase), ("variants", variants_phase))]
     emit("seconds", **seconds, total=sum(seconds.values()))
 
     main_rec = records[(SERVE_SHAPE, "float32")]

@@ -2,7 +2,8 @@
 
 The port of ``glfusion_tpu/cli.py`` for ``--mode train|val|visual|infer|
 serve|export`` (reference ``main.py --mode``), with the JAX CLI's flag
-names and guards: ``--variant global_and_local|cps|temporal``,
+names and guards: ``--variant`` (all eleven of JAX's values: the flagship,
+its eight ablations, ``cps`` and ``temporal``),
 ``--checkify``, ``--debug-nans``, ``--http-port`` (an HTTP endpoint,
 ``http_serve.py``) and ``--from-export`` (serving a ``--mode export``
 artifact). Without ``--data-root`` a synthetic corpus exercises the full
@@ -14,7 +15,7 @@ continues it.
 TF32 policy: in float32 the CLI turns TF32 off for cuBLAS and cuDNN, so
 "float32" is IEEE float32, as in the JAX package's tests, on the CPU and in
 every figure measured on the card; bfloat16 leaves PyTorch's settings as
-they are. The other flagship variants and the regression modes are
+they are. The segmentation zoo (``--model``) and the regression modes are
 ROADMAP Queue 1.
 """
 
@@ -31,7 +32,6 @@ from glfusion_tpu_torch.config import ALL_VIEWS, Config, tiny_config
 VARIANTS = ("global_and_local", "global_only", "local_only", "cyc_nofusion",
             "global_only_cyc_nofusion", "conv_merge", "fg_bg",
             "early_fusion", "late_fusion", "cps", "temporal")
-PORTED_VARIANTS = ("global_and_local", "cps", "temporal")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -158,11 +158,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def config_from_args(args: argparse.Namespace) -> Config:
     cfg = tiny_config() if args.tiny else Config()
-    if args.variant not in PORTED_VARIANTS:
-        raise SystemExit(
-            f"error: --variant {args.variant}: the other flagship variants "
-            f"are ROADMAP Queue 1 item 3; the port runs "
-            f"{list(PORTED_VARIANTS)}")
     temporal = args.variant == "temporal"
     variant = "global_and_local" if temporal else args.variant
     views = tuple(args.views.split(","))

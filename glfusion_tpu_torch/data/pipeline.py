@@ -4,12 +4,14 @@ The port of ``glfusion_tpu/data/pipeline.py``. Split of work:
 
   host   — NIfTI decode, labeled-frame selection (raw label sum > 100),
            nearest resize to the static 144² grid (numpy copies of the JAX
-           package's loaders, drawing the same frames from the same seed);
+           package's loaders, drawing the same frames from the same seed:
+           the train, cycle and test loaders, and the two whole-label
+           loaders ``AllMaskFrameLoader`` and ``FullVideoLoader``);
   device — paired random (train) or center (eval) crop to 112², /255, raw
            label → 5-structure one-hot (``preprocess_batch``).
 
 The JAX package's native C++ decoder and its background warm-up of the
-frame cache are ROADMAP M15; the port decodes with the pure-Python reader.
+frame cache are ROADMAP M15b; the port decodes with the pure-Python reader.
 """
 
 from __future__ import annotations
@@ -276,6 +278,92 @@ class TestClipLoader:
                 continue  # no requested view exists for this clip
             mask_stack, _ = align_views(masks, self.clip_length, t=t)
             yield {"clip_id": cid, "images": images, "masks": mask_stack}
+
+
+class AllMaskFrameLoader:
+    """Every annotated frame is one sample (``Seg_PAHDataset_all_mask``,
+    loader.py:1340-1678; JAX ``AllMaskFrameLoader``): enumerates (patient,
+    view, frame) triples whose raw label sum exceeds 100, in deterministic
+    order."""
+
+    def __init__(self, index: PatientIndex, ids: Sequence[str],
+                 views: Sequence[str], cfg: Config):
+        self.index = index
+        self.views = tuple(views)
+        self.cfg = cfg
+        self.items: list[tuple] = []
+        self._cache: Dict[tuple, tuple] = {}
+        for pid in ids:
+            if pid not in index.records:
+                continue
+            for view in self.views:
+                img_p, lab_p = index.view_paths(pid, view)
+                if img_p is None:
+                    continue
+                lab = np.asarray(read_nifti(lab_p)).squeeze()
+                if lab.ndim == 2:
+                    lab = lab[..., None]
+                for fr in labeled_frames(lab):
+                    self.items.append((pid, view, int(fr)))
+
+    def __len__(self) -> int:
+        return len(self.items)
+
+    def frames(self) -> Iterator[dict]:
+        r = self.cfg.data.resize_hw
+        for pid, view, fr in self.items:
+            key = (pid, view)
+            if key not in self._cache:
+                img_p, lab_p = self.index.view_paths(pid, view)
+                img = np.asarray(read_nifti(img_p)).squeeze()
+                lab = np.asarray(read_nifti(lab_p)).squeeze()
+                if img.ndim == 2:
+                    img, lab = img[..., None], lab[..., None]
+                self._cache[key] = (img, lab)
+            img, lab = self._cache[key]
+            yield {
+                "patient": pid, "view": view, "frame": fr,
+                "image_raw": _resize_nearest_np(
+                    img[..., fr].astype(np.float32), (r, r)),
+                "mask_raw": _resize_nearest_np(
+                    lab[..., fr].astype(np.int32), (r, r)),
+            }
+
+
+class FullVideoLoader:
+    """Whole labeled videos per patient/view (``Align_Seg_PAHDataset``,
+    loader.py:745-963; JAX ``FullVideoLoader``): the full frame sequence
+    with raw per-frame labels, nearest-resized spatially; no cropping
+    (eval-style)."""
+
+    def __init__(self, index: PatientIndex, ids: Sequence[str],
+                 views: Sequence[str], cfg: Config):
+        self.index = index
+        self.ids = [i for i in ids if i in index.records]
+        self.views = tuple(views)
+        self.cfg = cfg
+
+    def __len__(self) -> int:
+        return len(self.ids)
+
+    def videos(self) -> Iterator[dict]:
+        r = self.cfg.data.resize_hw
+        for pid in self.ids:
+            out = {"patient": pid, "views": {}}
+            for view in self.views:
+                img_p, lab_p = self.index.view_paths(pid, view)
+                if img_p is None:
+                    continue
+                img = np.asarray(read_nifti(img_p), np.float32).squeeze()
+                lab = np.asarray(read_nifti(lab_p), np.int32).squeeze()
+                if img.ndim == 2:
+                    img, lab = img[..., None], lab[..., None]
+                out["views"][view] = {
+                    "images_raw": _resize_nearest_np(img, (r, r)),
+                    "masks_raw": _resize_nearest_np(lab, (r, r)),
+                }
+            if out["views"]:
+                yield out
 
 
 # -------------------------------------------------------------- device side

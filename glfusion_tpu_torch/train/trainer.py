@@ -45,6 +45,7 @@ from glfusion_tpu_torch.data.pipeline import (AlignedClipLoader, ByteLRU,
                                               view_ids_tuple)
 from glfusion_tpu_torch.data.prefetch import prefetch
 from glfusion_tpu_torch.models import GlobalAndLocalCPS, build_model
+from glfusion_tpu_torch.models.glfusion import HEADS_IN_CYCLE
 from glfusion_tpu_torch.serve import resolve_device
 from glfusion_tpu_torch.train.metrics import overlap_metrics
 from glfusion_tpu_torch.train.step import make_eval_step, make_train_step
@@ -53,7 +54,7 @@ from glfusion_tpu_torch.train.train_state import (load_payload,
                                                   make_scheduler,
                                                   state_payload)
 from glfusion_tpu_torch.utils.checkpoint import CheckpointManager
-from glfusion_tpu_torch.utils.convert import load_checkpoint
+from glfusion_tpu_torch.utils.convert import MIXES, load_checkpoint
 from glfusion_tpu_torch.utils.summary import SummaryWriter
 
 # the reference's fixed eval split of the 10 test clips (main.py:423-424)
@@ -82,7 +83,7 @@ def _to_host(tree):
 
 
 class Trainer:
-    """Train and evaluate the flagship.
+    """Train and evaluate the flagship, one of its variants or the CPS twin.
 
     Parameters
     ----------
@@ -159,9 +160,11 @@ class Trainer:
         self.summary = SummaryWriter(str(log_dir))
 
     def _check_options(self) -> None:
-        """JAX's exclusions of the CPS twin (``trainer.py:84-104``)."""
+        """JAX's exclusions (``trainer.py:84-104``): of the CPS twin, and of
+        ``fg_bg`` and ``local_only``, whose cycle slot needs the heads."""
         tc = self.cfg.train
-        if tc.cycle_light and self.cps:
+        heads = self.cfg.model.variant in HEADS_IN_CYCLE
+        if tc.cycle_light and (self.cps or heads):
             raise ValueError(
                 "cycle_light requires the plain glfusion arch (non-CPS; "
                 "not fg_bg/local_only, whose cycle features need the "
@@ -172,7 +175,7 @@ class Trainer:
                 "temporal (video attention on cycle clips) requires the "
                 "plain glfusion arch: only GlobalAndLocal folds frames "
                 "into the attention token axis (is_video)")
-        if tc.fuse_passes and self.cps:
+        if tc.fuse_passes and (self.cps or heads):
             raise ValueError(
                 "fuse_passes requires the plain glfusion arch (non-CPS; "
                 "not fg_bg/local_only): the merged pass slices the head "
@@ -213,12 +216,33 @@ class Trainer:
         """Load a reference ``net_XXXXX.pth`` (``{'network': state_dict}``,
         reference ``main.py:454-457``) into the weights and BN statistics.
         The optimizer is untouched, as in JAX: the reference never saved
-        it."""
+        it.
+
+        As in JAX (``utils/torch_convert.py``), entries the model does not
+        have are ignored, and a tree the file does not cover is an error:
+        a ``KeyError`` naming what is missing, raised before anything is
+        loaded. The variants' 1×1 convs (``merge``, ``early_mix``,
+        ``late_mix``) are never read from such a file: JAX's converter does
+        not map them (its first forward then fails on the missing conv, or
+        its converter on the centerness head those variants lack), and the
+        reference's names for them are not known."""
         if self.cps:
             raise ValueError("--torch-ckpt requires the plain glfusion arch "
                              "(the converter maps Global_and_Local's "
                              "state-dict names)")
-        self.model.load_state_dict(load_checkpoint(path))
+        unmapped = [n for n in MIXES if hasattr(self.model, n)]
+        if unmapped:
+            raise KeyError(
+                f"--torch-ckpt: variant {self.cfg.model.variant!r} has "
+                f"1×1 convs ({', '.join(unmapped)}) that the reference "
+                "checkpoint converter does not map")
+        sd = load_checkpoint(path)
+        want = self.model.state_dict()
+        missing = [k for k in want if k not in sd]
+        if missing:
+            raise KeyError(f"{path} has no {missing[0]!r} ({len(missing)} "
+                           "of the model's entries missing)")
+        self.model.load_state_dict({k: sd[k] for k in want})
         self._log(f"loaded torch checkpoint {path}")
 
     def load_imagenet_backbone(self, path: str) -> None:

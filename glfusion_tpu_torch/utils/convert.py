@@ -6,7 +6,13 @@ checkpoints.
 
 * the stacked leading view axis of the JAX per-view parameters is
   de-interleaved into ``init_block.{v}``, ``layer{s}.{v}``,
-  ``classifier.{v}`` and ``centerness.{v}``;
+  ``classifier.{v}`` and ``centerness.{v}``, and the variants' 1×1 convs
+  (JAX ``PointwiseConv``) into names the port gives them: JAX ``merge``
+  (``conv_merge``), ``early_mix`` (``early_fusion``) and ``late_mix``
+  (``late_fusion``) become ``merge.{v}``, ``early_mix.{v}`` and
+  ``late_mix.{v}`` (``.weight`` (O, I, 1, 1), ``.bias``). The reference's
+  own names for these convs are not known, and JAX's
+  ``convert_state_dict`` does not map them;
 * conv kernels (kh, kw, I, O) become (O, I, kh, kw);
 * a Dense (I, O) becomes the 1×1×1 Conv3d weight (O, I, 1, 1, 1);
 * BatchNorm ``scale/bias`` params and ``mean/var`` batch stats become
@@ -28,10 +34,15 @@ import torch
 from glfusion_tpu_torch.config import ModelConfig
 
 Tree = Mapping[str, "Tree | np.ndarray"]
+# the variants' per-view 1×1 convs, under the same name in both packages
+MIXES = ("merge", "early_mix", "late_mix")
 
 
 def _t(a) -> torch.Tensor:
-    return torch.from_numpy(np.array(a, dtype=np.float32))
+    """float32; float64 arrays (a float64 JAX tree) stay float64."""
+    a = np.asarray(a)
+    return torch.from_numpy(np.array(
+        a, dtype=np.float64 if a.dtype == np.float64 else np.float32))
 
 
 def _conv(sd: Dict, key: str, p: Tree, bias: bool = False) -> None:
@@ -105,10 +116,16 @@ def head_state_dict(p: Tree, s: Tree,
 
 
 def tpavi_state_dict(p: Tree, s: Tree) -> Dict[str, torch.Tensor]:
-    """JAX ``TPAVI`` variables → ``models.tpavi.TPAVI`` names."""
+    """JAX ``TPAVI`` variables of any mode → ``models.tpavi.TPAVI`` names
+    (``gaussian`` has no θ, φ; ``concatenate``'s Dense ``w_f`` (2C', 1) is
+    the 1×1 conv ``W_f.0``)."""
     sd: Dict[str, torch.Tensor] = {}
     for name in ("theta", "phi", "g"):
-        _dense3d(sd, name, p[name])
+        if name in p:
+            _dense3d(sd, name, p[name])
+    if "w_f" in p:  # a Dense (2C', 1) is the 1×1 conv (1, 2C', 1, 1)
+        _conv(sd, "W_f.0", {"kernel": np.asarray(p["w_f"]["kernel"])[
+            None, None], "bias": p["w_f"]["bias"]}, bias=True)
     _dense3d(sd, "W_z.0", p["w_z_conv"])
     _bn(sd, "W_z.1", p["w_z_bn"], s["w_z_bn"])
     sd["norm_layer.weight"] = _t(p["norm"]["scale"])
@@ -125,9 +142,10 @@ def _view(tree: Tree, i: int):
 
 def state_dict_from_jax(variables: Mapping[str, Tree],
                         cfg: ModelConfig) -> Dict[str, torch.Tensor]:
-    """JAX ``GlobalAndLocal`` ``{'params', 'batch_stats'}`` → port state
-    dict; JAX ``GlobalAndLocalCPS`` variables (``net1``, ``net2`` trees) →
-    the port twin's ``net1.*``, ``net2.*``."""
+    """JAX ``GlobalAndLocal`` ``{'params', 'batch_stats'}`` of any variant
+    → port state dict (the modules the variant has); JAX
+    ``GlobalAndLocalCPS`` variables (``net1``, ``net2`` trees) → the port
+    twin's ``net1.*``, ``net2.*``."""
     params, stats = variables["params"], variables["batch_stats"]
     if "net1" in params:
         return {f"{net}.{k}": t for net in ("net1", "net2")
@@ -142,12 +160,18 @@ def state_dict_from_jax(variables: Mapping[str, Tree],
             head, rest = k.split(".", 1)
             sd[f"{head}.{v}.{rest}"] = t
         for name in ("classifier", "centerness"):
-            for k, t in head_state_dict(p[name], s[name],
-                                        len(cfg.aspp_rates)).items():
-                sd[f"{name}.{v}.{k}"] = t
+            if name in p:
+                for k, t in head_state_dict(p[name], s[name],
+                                            len(cfg.aspp_rates)).items():
+                    sd[f"{name}.{v}.{k}"] = t
+        for name in MIXES:
+            if name in p:
+                _conv(sd, f"{name}.{v}", p[name]["conv"], bias=True)
     for name in ("global_attn", "local_attn"):
-        for k, t in tpavi_state_dict(params[name], stats[name]).items():
-            sd[f"{name}.{k}"] = t
+        if name in params:
+            for k, t in tpavi_state_dict(params[name],
+                                         stats[name]).items():
+                sd[f"{name}.{k}"] = t
     return sd
 
 

@@ -9,6 +9,7 @@ float32, atol = rtol = 2e-4.
 from __future__ import annotations
 
 import dataclasses
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -16,12 +17,16 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port_common import (TINY_MODEL, TOL, one_torch_thread,  # noqa: F401
-                                random_variables, tiny_flagship, to_numpy)
+from _torch_port_common import (FAST_COMPILE, TINY_MODEL, TOL,  # noqa: F401
+                                one_torch_thread, random_variables,
+                                tiny_flagship, to_numpy)
 from glfusion_tpu import config as jconfig
 from glfusion_tpu.config import ModelConfig as JModelConfig
-from glfusion_tpu.models.glfusion import GlobalAndLocalCPS as JGlobalAndLocalCPS
+from glfusion_tpu.models.glfusion import GlobalAndLocal as JGlobalAndLocal
+from glfusion_tpu.models.glfusion import (
+    GlobalAndLocalCPS as JGlobalAndLocalCPS)
 from glfusion_tpu.utils.torch_convert import convert_state_dict
+from glfusion_tpu_torch.train.trainer import Trainer
 from glfusion_tpu_torch import config as pconfig
 from glfusion_tpu_torch.config import ModelConfig
 from glfusion_tpu_torch.models import GlobalAndLocal, GlobalAndLocalCPS
@@ -31,6 +36,13 @@ from glfusion_tpu_torch.utils.convert import (load_checkpoint,
 JCFG = JModelConfig(**TINY_MODEL)
 CFG = ModelConfig(**TINY_MODEL)
 OUTPUTS = ("mask", "mask_bb", "f4_global", "f4_local")
+# the flagship's ablations (JAX glfusion.py:168-326), at TINY_MODEL widths
+# with the ASPP's 1×1 and pooling branches only (their JAX references
+# compile in about half the time; the ablations leave the ASPP alone)
+VARIANT_CFG = dict(TINY_MODEL, aspp_rates=())
+VARIANTS = ("global_only", "local_only", "cyc_nofusion",
+            "global_only_cyc_nofusion", "conv_merge", "fg_bg",
+            "early_fusion", "late_fusion")
 
 
 @pytest.fixture(scope="module")
@@ -333,3 +345,150 @@ def test_cps_twin_matches_two_jax_flagships(jax_case, jax_apply):
                    ("f4_local", r1["f4_local"])):
         np.testing.assert_allclose(out[k].numpy(), np.asarray(ref),
                                    err_msg=k, **TOL)
+
+
+def _jax_variant(variant: str, x: np.ndarray, seed: int = 7):
+    """JAX's GlobalAndLocal of ``variant`` at VARIANT_CFG and random
+    variables (tree traced with ``jax.eval_shape``, no compile)."""
+    jm = JGlobalAndLocal(JModelConfig(**VARIANT_CFG, variant=variant))
+    return jm, random_variables(lambda: jm.init(
+        jax.random.PRNGKey(0), jnp.asarray(x), False), seed)
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_variant_eval_matches_jax(jax_case, variant):
+    """Each ablation's eval forward at VARIANT_CFG, the port through the
+    kernel's path (its plain version on the CPU), against JAX's jitted
+    default on the same variables: ``mask``, ``mask_bb``, ``f4_global``
+    (each variant's cycle slot: raw f4 for the cyc_nofusion pair and
+    early/late fusion, f4_fusion for fg_bg, the 1-channel atten map for
+    local_only) and ``f4_local`` (raw f4 where the variant has no local
+    branch), within TOL. The port holds exactly the modules JAX creates (a
+    strict load of the bridged tree), and every TPAVI W_z BN has a nonzero
+    scale."""
+    _, _, x = jax_case
+    jm, v = _jax_variant(variant, x)
+    ref = jax.jit(lambda v, x: jm.apply(v, x, False),
+                  compiler_options=FAST_COMPILE)(v, jnp.asarray(x))
+    cfg = ModelConfig(**VARIANT_CFG, variant=variant, use_pallas_fusion=True)
+    m = GlobalAndLocal(cfg)
+    m.load_state_dict(state_dict_from_jax(v, cfg))
+    for attn in ("global_attn", "local_attn"):
+        assert hasattr(m, attn) == (attn in v["params"]), attn
+        if hasattr(m, attn):
+            assert (getattr(m, attn).W_z[1].weight != 0).all()
+    with torch.no_grad():
+        out = m.eval()(torch.from_numpy(x))
+    for k in OUTPUTS:
+        assert out[k].shape == ref[k].shape, k
+        np.testing.assert_allclose(out[k].numpy(), np.asarray(ref[k]),
+                                   err_msg=k, **TOL)
+
+
+@pytest.mark.parametrize("variant,name,cin,cout", [
+    ("conv_merge", "merge", 2 * 64, 64), ("early_fusion", "early_mix", 3, 1),
+    ("late_fusion", "late_mix", 3 * 5, 5)])
+def test_state_dict_from_jax_maps_the_pointwise_convs(variant, name, cin,
+                                                      cout):
+    """``state_dict_from_jax`` maps JAX's per-view ``PointwiseConv``
+    ``{name}/conv`` (kernel (V, 1, 1, I, O), bias (V, O)) to the port's
+    ``{name}.{v}.weight`` (O, I, 1, 1) and ``.bias``, each view its own
+    slice, exactly; a new port model starts with the same conv in every
+    view, as JAX's ``_per_view`` does. In bfloat16 every output has JAX's
+    type."""
+    jm, v = _jax_variant(variant, np.zeros((3, 1, 32, 32, 1), np.float32))
+    cfg = ModelConfig(**VARIANT_CFG, variant=variant)
+    sd = state_dict_from_jax(v, cfg)
+    kernel = np.asarray(v["params"][name]["conv"]["kernel"])
+    bias = np.asarray(v["params"][name]["conv"]["bias"])
+    assert kernel.shape == (3, 1, 1, cin, cout)
+    for i, view in enumerate(CFG.views):
+        np.testing.assert_array_equal(sd[f"{name}.{view}.weight"].numpy(),
+                                      kernel[i].transpose(3, 2, 0, 1))
+        np.testing.assert_array_equal(sd[f"{name}.{view}.bias"].numpy(),
+                                      bias[i])
+    fresh = GlobalAndLocal(cfg)
+    convs = [getattr(fresh, name)[view] for view in CFG.views]
+    assert fresh.state_dict().keys() == sd.keys()
+    for conv in convs[1:]:
+        assert torch.equal(conv.weight, convs[0].weight)
+        assert conv.weight.data_ptr() != convs[0].weight.data_ptr()
+
+    # the conv takes no type from the model in JAX: float32 in a bfloat16
+    # model, so late_fusion's mask is float32 there; every output's type
+    # as JAX's (traced)
+    x = torch.rand(3, 1, 32, 32, 1)
+    jbf = JGlobalAndLocal(JModelConfig(**VARIANT_CFG, variant=variant,
+                                       dtype="bfloat16"))
+    want = jax.eval_shape(lambda: jbf.apply(v, jnp.asarray(x.numpy()),
+                                            False))
+    bf = GlobalAndLocal(dataclasses.replace(cfg, dtype="bfloat16")).eval()
+    with torch.no_grad():
+        out = bf(x)
+    assert {k: str(t.dtype)[6:] for k, t in out.items()} == {
+        k: str(a.dtype) for k, a in want.items()}
+
+
+@pytest.mark.parametrize("variant", ["fg_bg", "local_only"])
+def test_variants_refuse_the_cycle_forms_as_jax(jax_case, variant):
+    """``features_only`` and ``sup_count`` are refused for the variants
+    whose cycle slot needs the heads, with JAX's messages (JAX raises them
+    while tracing: ``jax.eval_shape``)."""
+    _, _, x = jax_case
+    jm, v = _jax_variant(variant, x)
+    m = GlobalAndLocal(ModelConfig(**VARIANT_CFG, variant=variant)).eval()
+    both = np.concatenate([x, x], axis=1)
+    for kw, inp in ((dict(features_only=True), x),
+                    (dict(sup_count=2), both)):
+        with pytest.raises(ValueError) as jerr:
+            jax.eval_shape(lambda: jm.apply(v, jnp.asarray(inp), False,
+                                            **kw))
+        with pytest.raises(ValueError) as err:
+            m(torch.from_numpy(inp), **kw)
+        assert str(err.value) == str(jerr.value)
+        assert "need the classifier heads" in str(err.value)
+
+
+@pytest.mark.parametrize("variant,source,fails", [
+    ("conv_merge", "conv_merge", "merge"),
+    ("local_only", "global_only", "centerness"),
+    ("global_only", "global_and_local", None)])
+def test_torch_ckpt_follows_jax_for_variants(tmp_path, variant, source,
+                                             fails):
+    """``--torch-ckpt`` (``Trainer.load_torch_checkpoint``) on a reference
+    ``{'network': ...}`` file of ``source``'s modules into ``variant``,
+    against JAX's reader (``convert_state_dict``, then the first forward,
+    traced): a tree the file does not cover fails in both, naming what is
+    missing: JAX's converter cannot map the variants' 1×1 convs (its first
+    forward finds no ``merge`` conv) nor a head the file lacks (its
+    converter raises ``KeyError``); the port raises ``KeyError`` before
+    anything is loaded. Entries the model does not have are ignored by
+    both, and the rest loads exactly."""
+    file_sd = GlobalAndLocal(ModelConfig(**VARIANT_CFG,
+                                         variant=source)).state_dict()
+    path = tmp_path / "net_00001.pth"
+    torch.save({"network": {f"module.{k}": t for k, t in file_sd.items()}},
+               path)
+    jm = JGlobalAndLocal(JModelConfig(**VARIANT_CFG, variant=variant))
+
+    def jax_load():
+        v = convert_state_dict(file_sd, jm.cfg)
+        return jax.eval_shape(lambda: jm.apply(
+            v, jnp.zeros((3, 1, 32, 32, 1)), False))
+
+    model = GlobalAndLocal(ModelConfig(**VARIANT_CFG, variant=variant))
+    before = {k: t.clone() for k, t in model.state_dict().items()}
+    trainer = SimpleNamespace(cps=False, model=model, _log=lambda m: None,
+                              cfg=SimpleNamespace(model=model.cfg))
+    if fails is None:
+        jax_load()
+        Trainer.load_torch_checkpoint(trainer, str(path))
+        for k, t in model.state_dict().items():
+            assert torch.equal(t, file_sd[k]), k
+        return
+    with pytest.raises(Exception, match=fails):
+        jax_load()
+    with pytest.raises(KeyError, match=fails):
+        Trainer.load_torch_checkpoint(trainer, str(path))
+    for k, t in model.state_dict().items():
+        assert torch.equal(t, before[k]), k

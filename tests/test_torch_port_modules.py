@@ -83,6 +83,33 @@ def test_tpavi_train_matches_jax(tpavi_case):
         0.9 * old["var"] + 0.1 * batch_var * n / (n - 1), **TOL)
 
 
+@pytest.mark.parametrize("train", [False, True])
+@pytest.mark.parametrize("mode", ["gaussian", "embedded", "concatenate"])
+def test_tpavi_modes_match_jax(mode, train):
+    """The reference module's other modes (JAX ``TPAVI(mode=...)``, which no
+    JAX model builds): the parameter tree (gaussian has no θ, φ;
+    concatenate adds ``w_f``), the output in eval and in train, and in
+    train the W_z BN's running mean; W_z BN scale ≠ 0. 48 tokens, so
+    concatenate's pairwise (B, N, N) map is small. float32, TOL."""
+    x = np.random.RandomState(4).standard_normal((2, 3, 4, 4, 16)).astype(
+        np.float32)
+    jm = JTPAVI(inter_channels=8, mode=mode)
+    v = random_variables(lambda: jm.init(KEY, jnp.asarray(x), False), seed=5)
+    assert ("theta" in v["params"]) == (mode != "gaussian")
+    assert ("w_f" in v["params"]) == (mode == "concatenate")
+    ref, upd = jax.jit(lambda v, x: jm.apply(v, x, train,
+                                             mutable=["batch_stats"]))(
+        v, jnp.asarray(x))
+    m = TPAVI(16, 8, mode=mode).train(train)
+    m.load_state_dict(tpavi_state_dict(v["params"], v["batch_stats"]))
+    assert (m.W_z[1].weight != 0).all()
+    with torch.no_grad():
+        got = m(torch.from_numpy(x))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
+    np.testing.assert_allclose(m.W_z[1].running_mean.numpy(), np.asarray(
+        upd["batch_stats"]["w_z_bn"]["mean"]), **TOL)
+
+
 def test_resnet_iekd_matches_jax():
     arch = dict(stem_width=8, block_sizes=(2, 1, 1, 1), widths=(4, 8, 12, 16))
     x = np.random.RandomState(2).rand(2, 32, 32, 1).astype(np.float32)

@@ -1,8 +1,9 @@
 """The options of the JAX package's train step in the port, against the
 JAX package on the CPU: one train step each under ``cycle_light`` with
 ``remat``, ``fuse_passes``, ``grad_accum`` with ``remat`` on the cycle pass
-only, ``temporal`` and CPS; ``checkify``'s error on a NaN; remat against
-no remat in the port; and the CLI's flags and exclusions.
+only, ``temporal`` and CPS, and one of each of the flagship's eight
+ablations (``--variant``); ``checkify``'s error on a NaN; remat against no
+remat in the port; and the CLI's flags and exclusions.
 
 The steps are the packages' own ``make_train_step`` around the smallest
 model that has what the options act on, per view: the IEKD stem and one
@@ -10,12 +11,15 @@ bottleneck (rematted when asked), whose output is ``f4_global``, and a
 head (1×1 conv + BN) whose logits, upsampled, are ``mask``. For
 ``temporal`` a TPAVI block attends over the bottleneck's output and gives
 ``f4_global`` (its frames folded into the tokens under ``is_video``); for
-CPS two such models run as ``net1`` and ``net2``. Both packages
-give the model JAX's ``features_only`` and ``sup_count`` contract; the
-flagship's own forms are held against its plain forward in
+CPS two such models run as ``net1`` and ``net2``. The ablations' steps
+run the packages' own ``GlobalAndLocal`` of the variant at tiny widths,
+the ASPP's 1×1 and pooling branches only, on the supervised loss. Both
+packages give the model JAX's ``features_only`` and ``sup_count``
+contract; the flagship's own forms are held against its plain forward in
 test_torch_port_model.py.
-(JAX compiles the tiny flagship's whole step in about a minute on one
-core.) Same numpy inputs through both packages; tolerances are stated.
+(JAX compiles the tiny flagship's step with both passes in 20-30 s on one
+core, its supervised pass alone in 9-14 s.) Same numpy inputs through both
+packages; tolerances are stated.
 """
 
 from __future__ import annotations
@@ -31,9 +35,10 @@ import optax
 import pytest
 import torch
 
-from _torch_port_common import (FAST_COMPILE, one_torch_thread,  # noqa: F401
-                                random_variables)
+from _torch_port_common import (FAST_COMPILE, TINY_MODEL,  # noqa: F401
+                                one_torch_thread, random_variables)
 from glfusion_tpu import config as jconfig
+from glfusion_tpu.models.glfusion import GlobalAndLocal as JGlobalAndLocal
 from glfusion_tpu.models.glfusion import _per_view
 from glfusion_tpu.models.resnet import ResNetIEKD as JResNetIEKD
 from glfusion_tpu.models.tpavi import TPAVI as JTPAVI
@@ -50,7 +55,8 @@ from glfusion_tpu_torch.models.tpavi import TPAVI
 from glfusion_tpu_torch.ops.resize import resize_bilinear_nchw
 from glfusion_tpu_torch.train.step import make_train_step
 from glfusion_tpu_torch.train.trainer import Trainer
-from glfusion_tpu_torch.utils.convert import _view, tpavi_state_dict
+from glfusion_tpu_torch.utils.convert import (_view, state_dict_from_jax,
+                                              tpavi_state_dict)
 
 VIEWS = ("1", "3", "4")
 C = 8  # stem width = the bottleneck's output (width 2, expansion 4)
@@ -209,6 +215,19 @@ STEP_CASES = {
     "temporal": (dict(temporal=True), False, (2, 2), np.float32, "attn"),
     "cps": (dict(), False, (2, 2), np.float64, "cps"),
 }
+# the ablations: the variant's GlobalAndLocal at TINY_MODEL widths with the
+# ASPP's 1×1 and pooling branches only, float64, the supervised pass alone
+# (JAX compiles a pass of the tiny flagship's step in 10-15 s on one core;
+# each variant's cycle slot is held against JAX's in the eval forward of
+# test_torch_port_model.py, and the cycle pass is the same model call on
+# other frames). BN update counts are not compared: the running means
+# carry them.
+VARIANT_CFG = dict(TINY_MODEL, aspp_rates=())
+VARIANTS = ("global_only", "local_only", "cyc_nofusion",
+            "global_only_cyc_nofusion", "conv_merge", "fg_bg",
+            "early_fusion", "late_fusion")
+STEP_CASES.update({v: (dict(use_cycle=False), False, None, np.float64, v)
+                   for v in VARIANTS})
 
 
 @pytest.mark.parametrize("option", list(STEP_CASES))
@@ -227,6 +246,9 @@ def test_train_step_option_matches_jax(option):
     ``temporal`` attends over the 8 clip frames' 3·h·w tokens at once in
     the cycle pass (per frame in the supervised pass); ``cps`` adds both
     networks' BCE and the cross pseudo-supervision terms (cps_weight 1).
+    Each ablation trains its ``GlobalAndLocal`` (TPAVI W_z BNs nonzero,
+    the port through the kernel's path) on the supervised loss; its
+    weights are bridged by ``state_dict_from_jax``.
 
     The port runs in float64, JAX in float64 (under ``jax.enable_x64``)
     where its step can: float32 is ill-conditioned here by design. The
@@ -241,7 +263,16 @@ def test_train_step_option_matches_jax(option):
     and TPAVI's LayerNorm bias (gradients that cancel to noise: the
     port's float64 one is 5e-13 under ``temporal``, JAX's float32 one
     1.3e-4) against their weight's max|g|;
-    running means rtol 1e-6. Against JAX in float32 (grad_accum_2):
+    running means rtol 1e-6. The ablations' gradients: 1e-4 in place of
+    1e-6 with an attention (JAX's attention returns its float32 products
+    in a float64 run, ``preferred_element_type``, and train BNs amplify
+    that: measured up to 1.6e-5), 2e-4 under ``early_fusion`` (its V→1 mix
+    computes in float32 in both packages, as JAX's ``PointwiseConv`` takes
+    no type; the two float32 sums differ in the last bit, which the train
+    BNs downstream amplify: measured up to 3.4e-5); their running
+    variances are not compared (the ASPP pooling branch's BN normalizes
+    over the batch alone, 2 frames, where torch's n/(n−1) doubles the
+    update). Against JAX in float32 (grad_accum_2):
     losses and counts rtol 1e-3, gradients atol 2e-2·max|g| + rtol 2e-2,
     running means 2e-4. Running variances rtol 2e-3 against float64 JAX:
     torch's unbiased update against flax's biased one (a factor n/(n−1),
@@ -250,19 +281,30 @@ def test_train_step_option_matches_jax(option):
     any batch variance; 5e-3 against float32 JAX, whose one-pass variance
     of the clip adds up to 3e-3.
     """
-    fields, remat, (n_backbone, n_head), jdt, net = STEP_CASES[option]
+    fields, remat, counts, jdt, net = STEP_CASES[option]
+    flagship = net in VARIANTS
     train = dict(test_views=("1", "4"), dense_cyc=True, **fields)
     jcfg = jconfig.tiny_config()
     jcfg = jcfg.replace(train=dataclasses.replace(jcfg.train, **train))
     cfg = pconfig.tiny_config()
     cfg = cfg.replace(model=dataclasses.replace(cfg.model, remat=remat),
                       train=dataclasses.replace(cfg.train, **train))
+    if flagship:
+        jcfg = jcfg.replace(model=dataclasses.replace(
+            jcfg.model, **VARIANT_CFG, variant=net,
+            dtype=np.dtype(jdt).name))
+        cfg = cfg.replace(model=dataclasses.replace(
+            cfg.model, **VARIANT_CFG, variant=net, use_pallas_fusion=True))
+        to_port = lambda v: state_dict_from_jax(v, cfg.model)  # noqa: E731
+    else:
+        to_port = _port_params
     b = 2 * cfg.train.grad_accum
     rs = np.random.RandomState(30)
     batch = {"images": rs.rand(3, b, 20, 20, 1).astype(jdt),
              "masks": (rs.rand(3, b, 20, 20, 5) > 0.7).astype(jdt),
              "clips": np.round(rs.rand(3, 8, 20, 20, 1) * 255).astype(jdt)}
-    jm = (_JCPS(dtype=np.dtype(jdt).name) if net == "cps" else
+    jm = (JGlobalAndLocal(jcfg.model) if flagship else
+          _JCPS(dtype=np.dtype(jdt).name) if net == "cps" else
           _JNet(remat=remat, dtype=np.dtype(jdt).name, attn=net == "attn"))
     twin = (_JNet(dtype=jm.dtype) if remat and not cfg.train.remat_supervised
             else None)
@@ -279,13 +321,14 @@ def test_train_step_option_matches_jax(option):
             state, {k: jnp.asarray(a) for k, a in batch.items()},
             jax.random.PRNGKey(1))
         jmet = jax.device_get(jmet)
-        want = _port_params(jax.device_get(
+        want = to_port(jax.device_get(
             {"params": jstate.params, "batch_stats": jstate.batch_stats}))
 
-    model = (_CPS() if net == "cps" else
+    model = (GlobalAndLocal(cfg.model) if flagship else
+             _CPS() if net == "cps" else
              _Net(remat, attn=net == "attn")).double()
     v0 = {k: t.double() if t.is_floating_point() else t
-          for k, t in _port_params(v).items()}
+          for k, t in to_port(v).items()}
     model.load_state_dict(v0)
     got = make_train_step(cfg, model,
                           torch.optim.SGD(model.parameters(), lr=1.0),
@@ -297,6 +340,10 @@ def test_train_step_option_matches_jax(option):
     tight = jdt == np.float64
     loss_tol, grad_tol, mean_tol, var_tol = (
         (1e-6, 1e-6, 1e-6, 2e-3) if tight else (1e-3, 2e-2, 2e-4, 5e-3))
+    if flagship and {"global_attn", "local_attn"} & set(v["params"]):
+        grad_tol = 1e-4
+    elif net == "early_fusion":
+        grad_tol = 2e-4
     if net == "cps":
         # each update adds m·var_b/(n − 1) to torch's average and nothing
         # to flax's, so the relative gap is at most 1/(n_min − 1) whatever
@@ -306,13 +353,16 @@ def test_train_step_option_matches_jax(option):
     for k in ("loss", "seg_loss", "cyc_loss", "tp", "fp", "fn", "tn"):
         np.testing.assert_allclose(got[k].numpy(), jmet[k], rtol=loss_tol,
                                    err_msg=k)
-    assert float(got["cyc_loss"]) > 0
+    assert (float(got["cyc_loss"]) > 0) == cfg.train.use_cycle
     for k, w in want.items():
         w = w.double() if w.is_floating_point() else w
         if k.endswith("num_batches_tracked"):
-            n = n_head if f".{k}".find(".head.") >= 0 else n_backbone
-            assert int(after[k]) == n, (k, int(after[k]))
+            if counts is not None:
+                n = counts[1] if f".{k}".find(".head.") >= 0 else counts[0]
+                assert int(after[k]) == n, (k, int(after[k]))
         elif k.endswith("running_var"):
+            if flagship:
+                continue
             np.testing.assert_allclose(after[k].numpy(), w.numpy(),
                                        rtol=var_tol, err_msg=k)
         elif k.endswith("running_mean"):
@@ -360,9 +410,10 @@ def test_cli_takes_the_options_and_refuses_jax_exclusions(tmp_path):
     """``--dtype``, ``--remat``, ``--cycle-light``, ``--fuse-passes`` and
     ``--grad-accum`` reach the configuration with the JAX CLI's defaults;
     ``--variant temporal`` is a train switch on the flagship, ``cps`` the
-    twin, the other variants refused; ``--checkify`` reaches the
-    configuration; the step, the Trainer and the CLI refuse what JAX's
-    do."""
+    twin, every other value of JAX's a ``GlobalAndLocal`` of that variant;
+    ``--checkify`` reaches the configuration; the step, the Trainer and
+    the CLI refuse what JAX's do (``cycle_light`` and ``fuse_passes`` for
+    CPS, ``fg_bg`` and ``local_only``)."""
     def cfg_of(*flags):
         return cli.config_from_args(cli.build_parser().parse_args(
             ["--tiny", *flags]))
@@ -401,8 +452,12 @@ def test_cli_takes_the_options_and_refuses_jax_exclusions(tmp_path):
     assert is_cps and isinstance(model, GlobalAndLocalCPS)
     assert not torch.equal(model.net1.global_attn.theta.weight,
                            model.net2.global_attn.theta.weight)
-    with pytest.raises(SystemExit):
-        cfg_of("--variant", "conv_merge")
+    for variant in cli.VARIANTS:  # all of JAX's --variant values
+        want = "global_and_local" if variant == "temporal" else variant
+        assert cfg_of("--variant", variant).model.variant == want
+    merge, is_cps = build_model(cfg_of("--variant", "conv_merge").model)
+    assert not is_cps and isinstance(merge, GlobalAndLocal)
+    assert set(merge.merge) == set(VIEWS)
 
     with pytest.raises(ValueError, match="exclusive of CPS/temporal"):
         make_train_step(cfg_of("--variant", "temporal", "--fuse-passes"),
@@ -414,6 +469,15 @@ def test_cli_takes_the_options_and_refuses_jax_exclusions(tmp_path):
         with pytest.raises(ValueError, match=match):
             Trainer._check_options(SimpleNamespace(
                 cfg=cfg_of("--variant", "cps", flag), cps=True))
+    for variant in ("fg_bg", "local_only"):  # their cycle slot: the heads
+        for flag, match in (("--cycle-light", "cycle_light requires"),
+                            ("--fuse-passes", "fuse_passes requires")):
+            with pytest.raises(ValueError, match=match):
+                Trainer._check_options(SimpleNamespace(
+                    cfg=cfg_of("--variant", variant, flag), cps=False))
+    for variant in ("conv_merge", "cyc_nofusion", "early_fusion"):
+        Trainer._check_options(SimpleNamespace(
+            cfg=cfg_of("--variant", variant, "--cycle-light"), cps=False))
     temporal_cps = cps.replace(train=dataclasses.replace(cps.train,
                                                          temporal=True))
     with pytest.raises(ValueError, match="temporal .* requires"):

@@ -142,6 +142,8 @@ def test_port_imports_no_jax():
                 "model_export", "debug"):
         assert ROOT / "glfusion_tpu_torch" / "utils" / f"{new}.py" in files
     assert ROOT / "glfusion_tpu_torch" / "http_serve.py" in files
+    for new in ("index_builder", "xlsx"):
+        assert ROOT / "glfusion_tpu_torch" / "data" / f"{new}.py" in files
     banned = ("jax", "flax", "glfusion_tpu")
     for f in files:
         for mod in _imports(f):
