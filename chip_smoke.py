@@ -94,6 +94,13 @@ nonzero:
           against the plain stem on the step's tensors; the eval forward
           against the plain stems and the reassociated order; s/step and
           peak memory per variant.
+  zoo     the segmentation zoo (``--model``: the U-Net family, the
+          multi-view U-Nets, UTNet, CEN, the 3-D ResUNet) at ``Config()``
+          widths, float32: each trains 2 steps through ``Trainer``, then an
+          eval forward is timed and counted (``utils/profiling.py``) and
+          held against its float64 twin on the card; res3dunet's loss with
+          and without its deep-supervision maps; K1's and the stems'
+          launch counts unmoved by the phase.
 
 The last lines are the kernels' record, the card's ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``. Without CUDA, or outside a checkout, it
@@ -223,6 +230,13 @@ VARIANT_K1 = {"cyc_nofusion": 4, "conv_merge": 4, "fg_bg": 4,
               "global_only": 2, "global_only_cyc_nofusion": 2,
               "local_only": 2, "early_fusion": 0, "late_fusion": 0}
 VARIANT_IN_SITU_K1 = ("fg_bg", "conv_merge", "local_only")
+# zoo: the segmentation zoo's nine architectures at Config() widths, each
+# VARIANT_STEPS steps on the train phase's corpus (train_repeat
+# VARIANT_REPEAT), then one eval forward held against the same module in
+# float64 on the card within ZOO_TOL in relative norm
+ZOO_ARCHS = ("unet", "unet:plain", "unet:r2", "unet:att", "unet:r2att",
+             "multiview_unet", "utnet", "cen", "res3dunet")
+ZOO_TOL = 1e-4
 # infer against serve: a voxel's mask may differ only where the clip's
 # logit there lies this close to the threshold 0
 MASK_FLIP_LOGIT = 1e-3
@@ -1865,6 +1879,7 @@ def _timed_trainer(torch, cfg, data_paths, model):
 
     if hasattr(inner, "checkify_flush"):
         timed_step.checkify_flush = inner.checkify_flush
+    timed_step.seg_loss = inner.seg_loss
     trainer.train_step = timed_step
     return trainer, step_s
 
@@ -2206,6 +2221,97 @@ def checkify_phase(torch, data_paths) -> dict:
     del trainer, model
     _free(torch)
     return c
+
+
+def zoo_phase(torch, data_paths) -> dict:
+    """The segmentation zoo (``--model``) at ``Config()`` widths, float32:
+    each of ``ZOO_ARCHS`` is built through the registry and trains
+    ``VARIANT_STEPS`` steps through ``Trainer`` on the train phase's
+    corpus, then runs one eval forward of a supervised batch, timed
+    (``utils/profiling.time_fn``) and counted (``flops_of``), and held
+    against the same module in float64 on the card (every output within
+    ``ZOO_TOL`` in relative norm: cuDNN's 3-D, transposed 3-D, depthwise
+    and dilated convolutions, which the CPU tests never reach). For
+    ``res3dunet`` the step's supervised loss on that batch, with and
+    without its three ``mask_aux`` maps. No zoo model runs a hand-written
+    kernel (JAX sends only the flagship's TPAVI to Pallas): K1's and the
+    stems' launch counts must not move across the phase."""
+    from glfusion_tpu_torch.models import build_model
+    from glfusion_tpu_torch.train.losses import bce_with_logits_sum
+    from glfusion_tpu_torch.utils.profiling import flops_of, time_fn
+
+    before = _counts(torch)
+    records = {}
+    for arch in ZOO_ARCHS:
+        cfg = _flagship_config()
+        cfg = cfg.replace(
+            model=dataclasses.replace(cfg.model, arch=arch,
+                                      use_pallas_fusion=False),
+            data=dataclasses.replace(cfg.data, train_repeat=VARIANT_REPEAT))
+        torch.manual_seed(0)
+        model, _ = build_model(cfg.model, hw=cfg.data.crop_hw)
+        trainer, step_s = _timed_trainer(torch, cfg, data_paths, model)
+        step = trainer.train_step
+        host = next(trainer.train_loader.batches(cfg.train.batch_size, 1))
+        with trainer.step_randomness(1, 0) as gen:
+            batch = trainer.train_batch(host, None, gen)
+        images, masks = batch["images"], batch["masks"]
+
+        _free(torch)
+        torch.cuda.reset_peak_memory_stats()
+        metrics = trainer.train()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        check(metrics["steps"] == VARIANT_STEPS, f"{arch}: {metrics['steps']}"
+              " steps")
+        for k in ("loss", "seg_loss", "cyc_loss"):
+            check(math.isfinite(metrics[k]) and metrics[k] > 0,
+                  f"{arch}: {k} = {metrics[k]}")
+
+        model.eval()
+        with torch.inference_mode():
+            out = model(images)
+            fwd_s = time_fn(lambda x: model(x), images, iters=3)
+            flop = flops_of(lambda x: model(x), images)
+            twin = copy.deepcopy(model).double()
+            out64 = twin(images.double())
+        errs = {}
+        for k, v in out.items():
+            for j, t in enumerate(v if isinstance(v, tuple) else (v,)):
+                ref = (out64[k][j] if isinstance(v, tuple) else out64[k])
+                name = f"{k}{j}" if isinstance(v, tuple) else k
+                check(bool(torch.isfinite(t).all()), f"{arch}: {name}")
+                errs[name] = rel_norm(t, ref)
+                check(errs[name] <= ZOO_TOL, f"{arch}: eval {name} against "
+                      f"float64 relative norm {errs[name]} > {ZOO_TOL}")
+        rec = dict(s_per_step=step_s[-1], step_s=step_s,
+                   max_memory_allocated=peak, loss=metrics["loss"],
+                   eval_ms=fwd_s * 1e3, eval_flop=flop,
+                   eval_frames=list(images.shape[:2]),
+                   params=sum(p.numel() for p in model.parameters()),
+                   rel_err_vs_float64=errs)
+        if "mask_aux" in out:
+            with torch.inference_mode():
+                plain = {k: v for k, v in out.items() if k != "mask_aux"}
+                with_aux = step.seg_loss(out, masks).item()
+                without = step.seg_loss(plain, masks).item()
+                aux = sum(bce_with_logits_sum(a[vi], masks[vi]).item()
+                          for a in out["mask_aux"]
+                          for vi in range(masks.shape[0]))
+            check(len(out["mask_aux"]) == 3, f"{arch}: mask_aux")
+            check(abs(with_aux - without - aux) <= 1e-5 * with_aux,
+                  f"{arch}: loss {with_aux} is not {without} + the aux "
+                  f"terms {aux}")
+            rec["seg_loss_with_aux"] = with_aux
+            rec["seg_loss_without_aux"] = without
+        records[arch] = rec
+        del trainer, model, twin, out, out64, images, masks, batch
+        _free(torch)
+    after = _counts(torch)
+    check(after == before, f"zoo: kernel launches moved {before} → {after}")
+    emit("zoo", dtype="float32", steps=VARIANT_STEPS, archs=records,
+         launches_before=before, launches_after=after)
+    return records
 
 
 def _du(path: Path) -> int:
@@ -2654,6 +2760,7 @@ def main() -> None:
         ("temporal", temporal_phase), ("cps", cps_phase),
         ("checkify", checkify_phase), ("train_bf16", train_bf16_phase),
         ("lifecycle", lifecycle_phase), ("variants", variants_phase))]
+    timed("zoo", zoo_phase, paths)  # runs no kernel (asserted)
     emit("seconds", **seconds, total=sum(seconds.values()))
 
     main_rec = records[(SERVE_SHAPE, "float32")]

@@ -2,8 +2,10 @@
 
 The port of ``glfusion_tpu/cli.py`` for ``--mode train|val|visual|infer|
 serve|export`` (reference ``main.py --mode``), with the JAX CLI's flag
-names and guards: ``--variant`` (all eleven of JAX's values: the flagship,
-its eight ablations, ``cps`` and ``temporal``),
+names and guards: ``--model`` (JAX's ``SEG_ARCHS``: the flagship and the
+zoo of ``models/registry.py``; the AVS family and the legacy kinds raise,
+ROADMAP Queue 1), ``--variant`` (all eleven of JAX's values: the
+flagship, its eight ablations, ``cps`` and ``temporal``),
 ``--checkify``, ``--debug-nans``, ``--http-port`` (an HTTP endpoint,
 ``http_serve.py``) and ``--from-export`` (serving a ``--mode export``
 artifact). Without ``--data-root`` a synthetic corpus exercises the full
@@ -15,8 +17,7 @@ continues it.
 TF32 policy: in float32 the CLI turns TF32 off for cuBLAS and cuDNN, so
 "float32" is IEEE float32, as in the JAX package's tests, on the CPU and in
 every figure measured on the card; bfloat16 leaves PyTorch's settings as
-they are. The segmentation zoo (``--model``) and the regression modes are
-ROADMAP Queue 1.
+they are. The regression modes are ROADMAP Queue 1.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ import dataclasses
 import os
 from pathlib import Path
 
+from glfusion_tpu_torch.arch_names import SEG_ARCHS
 from glfusion_tpu_torch.config import ALL_VIEWS, Config, tiny_config
 
 # JAX's --variant choices; 'temporal' is a train switch on the plain model
@@ -49,6 +51,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "ClipPipeline (or, with --http-port, answers "
                         "requests), export writes a torch.export program "
                         "of the serving forward")
+    p.add_argument("--model", default="glfusion", choices=list(SEG_ARCHS),
+                   help="trainable architecture (models/registry.py): the "
+                        "flagship and the zoo (unet, multiview_unet, "
+                        "unet:<kind>, utnet, cen, res3dunet); the AVS family "
+                        "and the legacy kinds are not ported yet")
     p.add_argument("--variant", default="global_and_local", choices=VARIANTS,
                    help="'cps' = the cross-pseudo-supervision twin; "
                         "'temporal' = cycle clips run video attention over "
@@ -173,7 +180,7 @@ def config_from_args(args: argparse.Namespace) -> Config:
     return dataclasses.replace(
         cfg,
         model=dataclasses.replace(
-            cfg.model, views=views, variant=variant,
+            cfg.model, views=views, variant=variant, arch=args.model,
             dtype=(args.dtype or cfg.model.dtype),
             remat=args.remat or cfg.model.remat),
         data=dataclasses.replace(

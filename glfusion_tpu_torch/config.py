@@ -47,9 +47,9 @@ class ModelConfig:
     tpavi_inter_channels: int | None = None
     # Center-aware local masking weight
     center_aware_weight: float = 20.0
-    # Model variant switch (the port builds "global_and_local" and "cps")
+    # Model variant switch of the flagship (arch "glfusion")
     variant: str = "global_and_local"
-    # Trainable architecture family (the port implements "glfusion")
+    # Trainable architecture (models/registry.py; arch_names.SEG_ARCHS)
     arch: str = "glfusion"
     # Compute dtype, float32 or bfloat16 (params stay fp32; the rounding
     # points are listed in models/precision.py).

@@ -115,10 +115,6 @@ class PointwiseConv(nn.Conv2d):
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.arch != "glfusion":
-        raise NotImplementedError(
-            f"arch {cfg.arch!r}: the segmentation zoo is ROADMAP Queue 1 "
-            "item 2 (M13)")
     if len(cfg.block_sizes) != 4:
         raise ValueError("the reference names four stages, layer1..layer4")
 

@@ -40,24 +40,47 @@ def compute_dtype(name: str) -> torch.dtype:
     return DTYPES[name]
 
 
-class Conv2d(nn.Conv2d):
-    """``nn.Conv2d`` computing in ``compute_dtype`` (flax's
+class _ComputeConv:
+    """Mixin of a torch convolution computing in ``compute_dtype`` (flax's
     ``nn.Conv(dtype=...)``): input, weight and bias are cast at use and the
     output is in that type. Outside float32 the bias is added after the
     convolution's output is rounded, a second rounding, as flax does. The
-    state dict is ``nn.Conv2d``'s."""
+    state dict is the torch module's."""
 
     def __init__(self, *args, compute_dtype: torch.dtype = torch.float32,
                  **kwargs):
         super().__init__(*args, **kwargs)
         self.compute_dtype = compute_dtype
 
+    def _unbiased(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        return self._conv_forward(x, w, None)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
         if dt == torch.float32:
             return super().forward(x)
-        y = self._conv_forward(x.to(dt), self.weight.to(dt), None)
-        return y if self.bias is None else y + self.bias.to(dt).view(-1, 1, 1)
+        y = self._unbiased(x.to(dt), self.weight.to(dt))
+        if self.bias is None:
+            return y
+        return y + self.bias.to(dt).view(-1, *(1,) * (y.dim() - 2))
+
+
+class Conv2d(_ComputeConv, nn.Conv2d):
+    """``nn.Conv2d`` computing in ``compute_dtype``."""
+
+
+class Conv3d(_ComputeConv, nn.Conv3d):
+    """``nn.Conv3d`` computing in ``compute_dtype``."""
+
+
+class ConvTranspose3d(_ComputeConv, nn.ConvTranspose3d):
+    """``nn.ConvTranspose3d`` computing in ``compute_dtype`` (no
+    ``output_size`` argument)."""
+
+    def _unbiased(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        return F.conv_transpose3d(x, w, None, self.stride, self.padding,
+                                  self.output_padding, self.groups,
+                                  self.dilation)
 
 
 def linear(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,

@@ -60,7 +60,7 @@ class ClipPipeline:
     ----------
     cfg: the run's :class:`Config`; ``cfg.model.views`` and
         ``cfg.data.clip_length`` shape the input.
-    model: the flagship ``GlobalAndLocal`` with its weights; it is moved to
+    model: a model of ``cfg.model`` with its weights; it is moved to
         ``device`` and put in eval mode. None when ``forward`` is given.
     depth: clips kept in flight on the card.
     threads: host decode workers.

@@ -1,10 +1,11 @@
-"""Train and eval steps of the flagship.
+"""Train and eval steps of the flagship and the segmentation zoo.
 
 The port of the base path of ``glfusion_tpu/train/step.py`` (reference
 ``main.py:193-243`` and ``:500-519``). One train step:
 
   1. the supervised forward on the stacked views → Σ over the test views of
-     the BCE-sum of the fused mask;
+     the BCE-sum of the fused mask (and of each deep-supervision map a zoo
+     model returns as ``mask_aux``);
   2. the cycle forward on the per-view clips (frames as batch) →
      ``f4_global`` summed over space → one cycle loss per view;
   3. one Adam step on the gradient of seg + cycle_weight·cyc.
@@ -150,9 +151,10 @@ def make_train_step(cfg: Config, model: torch.nn.Module,
     5) and, when the cycle loss is on, clips (V, T, H, W, 1). The generator
     draws the sampled cycle starts. Metrics: loss, seg_loss, cyc_loss and
     per-view confusion counts tp/fp/fn/tn (V,). ``cps``: ``model`` is the
-    ``GlobalAndLocalCPS`` twin. With ``cfg.train.checkify`` the step has a
-    ``checkify_flush()`` that raises on the last step's non-finite loss or
-    gradient norm.
+    ``GlobalAndLocalCPS`` twin. ``train_step.seg_loss(out, masks)`` is the
+    step's supervised loss of a forward's output. With
+    ``cfg.train.checkify`` the step has a ``checkify_flush()`` that raises
+    on the last step's non-finite loss or gradient norm.
     """
     _check_supported(cfg, cps)
     test_idx = supervised_view_indices(cfg)
@@ -162,11 +164,15 @@ def make_train_step(cfg: Config, model: torch.nn.Module,
     checker = FinitenessCheck() if tc.checkify else None
 
     def seg_loss(out, masks):
-        """Σ over the test views of the BCE-sum; under CPS both networks'
-        and ``cps_weight`` × the cross pseudo-supervision terms (JAX
-        ``step.py:145-160``)."""
+        """Σ over the test views of the BCE-sum, of the mask and of every
+        deep-supervision map (``mask_aux``, JAX ``step.py:138-144``); under
+        CPS both networks' and ``cps_weight`` × the cross pseudo-supervision
+        terms (JAX ``step.py:145-160``)."""
         loss = sum(bce_with_logits_sum(out["mask"][vi], masks[vi])
                    for vi in test_idx)
+        for aux in out.get("mask_aux", ()):
+            for vi in test_idx:
+                loss = loss + bce_with_logits_sum(aux[vi], masks[vi])
         if not cps:
             return loss
         pseudo1 = (out["mask"].detach() > 0.0).to(masks.dtype)
@@ -230,6 +236,7 @@ def make_train_step(cfg: Config, model: torch.nn.Module,
                                       dim=tuple(range(1, mask_logits.dim())))
         return {"loss": total, "seg_loss": seg, "cyc_loss": cyc, **counts}
 
+    train_step.seg_loss = seg_loss  # the supervised loss of (out, masks)
     if checker is not None:
         train_step.checkify_flush = checker.flush
     return train_step

@@ -83,7 +83,8 @@ def _to_host(tree):
 
 
 class Trainer:
-    """Train and evaluate the flagship, one of its variants or the CPS twin.
+    """Train and evaluate the flagship, one of its variants, the CPS twin or
+    a model of the zoo (``cfg.model.arch``).
 
     Parameters
     ----------
@@ -92,9 +93,9 @@ class Trainer:
         ``data_list_dir``; None writes the synthetic corpus (seeded by
         ``cfg.train.seed``) into a temporary directory.
     device: None → CUDA (raises without it); ``"cpu"`` runs on the CPU.
-    model: an already built flagship or CPS twin to train (for instance
-        with fused stems swapped in); None builds ``cfg.model``'s
-        (``models.build_model``).
+    model: an already built model of ``cfg.model`` to train (for instance
+        the flagship with fused stems swapped in); None builds it
+        (``models.build_model``, the registry).
     """
 
     def __init__(self, cfg: Config, data_paths: Optional[Dict[str, str]] = None,
@@ -135,7 +136,7 @@ class Trainer:
         self.view_ids = view_ids_tuple(views)
 
         if model is None:
-            model, self.cps = build_model(cfg.model)
+            model, self.cps = build_model(cfg.model, hw=cfg.data.crop_hw)
         else:
             self.cps = isinstance(model, GlobalAndLocalCPS)
         self.model = model.to(self.device)
@@ -160,22 +161,24 @@ class Trainer:
         self.summary = SummaryWriter(str(log_dir))
 
     def _check_options(self) -> None:
-        """JAX's exclusions (``trainer.py:84-104``): of the CPS twin, and of
-        ``fg_bg`` and ``local_only``, whose cycle slot needs the heads."""
+        """JAX's exclusions (``trainer.py:84-104``): of a zoo arch, of the
+        CPS twin, and of ``fg_bg`` and ``local_only``, whose cycle slot
+        needs the heads."""
         tc = self.cfg.train
+        zoo = self.cfg.model.arch != "glfusion"
         heads = self.cfg.model.variant in HEADS_IN_CYCLE
-        if tc.cycle_light and (self.cps or heads):
+        if tc.cycle_light and (zoo or self.cps or heads):
             raise ValueError(
                 "cycle_light requires the plain glfusion arch (non-CPS; "
                 "not fg_bg/local_only, whose cycle features need the "
                 "classifier heads): the fast cycle forward computes "
                 "f4_global directly")
-        if tc.temporal and self.cps:
+        if tc.temporal and (zoo or self.cps):
             raise ValueError(
                 "temporal (video attention on cycle clips) requires the "
                 "plain glfusion arch: only GlobalAndLocal folds frames "
                 "into the attention token axis (is_video)")
-        if tc.fuse_passes and (self.cps or heads):
+        if tc.fuse_passes and (zoo or self.cps or heads):
             raise ValueError(
                 "fuse_passes requires the plain glfusion arch (non-CPS; "
                 "not fg_bg/local_only): the merged pass slices the head "
@@ -226,7 +229,7 @@ class Trainer:
         not map them (its first forward then fails on the missing conv, or
         its converter on the centerness head those variants lack), and the
         reference's names for them are not known."""
-        if self.cps:
+        if self.cfg.model.arch != "glfusion" or self.cps:
             raise ValueError("--torch-ckpt requires the plain glfusion arch "
                              "(the converter maps Global_and_Local's "
                              "state-dict names)")
@@ -250,7 +253,7 @@ class Trainer:
         ResNet-50, as the reference does (``utils/imagenet_init.py``): the
         1-channel stem conv, the heads and the attentions keep their
         initialization."""
-        if self.cps:
+        if self.cfg.model.arch != "glfusion" or self.cps:
             raise ValueError("--imagenet-backbone requires the plain "
                              "glfusion arch (the mapping targets the "
                              "flagship's stacked-view backbone tree)")

@@ -188,3 +188,109 @@ def load_checkpoint(path: str) -> Dict[str, torch.Tensor]:
     sd = {(k[7:] if k.startswith("module.") else k): v for k, v in sd.items()}
     return {k: v for k, v in sd.items()
             if not k.startswith("network.") and ".align_channel." not in k}
+
+
+# ------------------------------------------------------------------ the zoo
+
+# where JAX stacks a per-view copy of the tree (``nn.vmap``) and the port
+# holds ``.{i}`` modules; CEN's streams are stacked inside its StreamBNs
+_ZOO_PER_VIEW = {"unet": ("net/encoder", "net/decoder"),
+                 "multiview_unet": ("net/encoder", "net/decoder"),
+                 "utnet": ("net",), "res3dunet": ("net",), "cen": ()}
+# flax's automatic names of ConvBNRelu's children → the port's
+_ZOO_RENAME = {"Conv_0": "conv", "BatchNorm_0": "bn"}
+
+
+def _zoo_per_view(arch: str) -> tuple:
+    if arch.startswith("unet:"):
+        return ("net",)
+    if arch not in _ZOO_PER_VIEW:
+        raise ValueError(f"zoo_state_dict_from_jax: no mapping for {arch!r}")
+    return _ZOO_PER_VIEW[arch]
+
+
+def _zoo_kernel(k: np.ndarray, transposed: bool) -> np.ndarray:
+    """flax (k…, I, O) → torch (O, I, k…); a flax ``ConvTranspose``
+    (``transpose_kernel=False``, no flip) → torch ``ConvTranspose3d``
+    (I, O, k…), whose taps run flipped."""
+    n = k.ndim - 2
+    if transposed:
+        return np.flip(np.transpose(k, (n, n + 1) + tuple(range(n))),
+                       axis=tuple(range(2, n + 2)))
+    return np.transpose(k, (n + 1, n) + tuple(range(n)))
+
+
+def _zoo_node(sd: Dict, key: str, name: str, p: Tree, s: Tree,
+              transposed: bool) -> None:
+    """The leaves of one flax module (its parameters and batch stats)."""
+    if "kernel" in p:
+        sd[f"{key}.weight"] = _t(np.ascontiguousarray(
+            _zoo_kernel(np.asarray(p["kernel"]), transposed)))
+        if "bias" in p:
+            sd[f"{key}.bias"] = _t(p["bias"])
+    elif "scale" in p:  # BatchNorm (C,), or CEN's StreamBN (S, C)
+        if np.ndim(p["scale"]) == 1:
+            _bn(sd, key, p, s)
+        else:
+            sd[f"{key}.weight"] = _t(p["scale"])
+            sd[f"{key}.bias"] = _t(p["bias"])
+            sd[f"{key}.running_mean"] = _t(s["mean"])
+            sd[f"{key}.running_var"] = _t(s["var"])
+    if "table" in p:  # UTNet's relative position bias
+        sd[f"{key}.table"] = _t(p["table"])
+    if "alpha" in p:  # a PReLU's slopes, or CEN's ensemble logits
+        sd[f"{key}.weight" if name == "prelu" else f"{key}.alpha"] = _t(
+            p["alpha"])
+
+
+def _first_leaf(tree: Tree):
+    while isinstance(tree, Mapping):
+        tree = next(iter(tree.values()))
+    return tree
+
+
+def _zoo_walk(sd: Dict, key: str, path: tuple, p: Tree, s: Tree,
+              per_view: tuple, arch: str) -> None:
+    """Convert the flax module at ``path`` (its names) into port key
+    ``key``, then its children."""
+    if "/".join(path) in per_view:
+        for i in range(np.shape(_first_leaf(p))[0]):
+            _zoo_walk(sd, f"{key}.{i}", path + (str(i),), _view(p, i),
+                      _view(s, i), per_view, arch)
+        return
+    name = path[-1] if path else ""
+    if name == "global_attn":  # multiview_unet's TPAVI
+        for k, t in tpavi_state_dict(p, s).items():
+            sd[f"{key}.{k}"] = t
+        return
+    transposed = (arch == "res3dunet" and path[-2:-1] in
+                  (("up2",), ("up3",), ("up4",)) and name == "conv")
+    _zoo_node(sd, key, name, p, s, transposed)
+    for child, sub in p.items():
+        if isinstance(sub, Mapping):
+            part = _ZOO_RENAME.get(child, child)
+            _zoo_walk(sd, f"{key}.{part}" if key else part, path + (child,),
+                      sub, s.get(child, {}), per_view, arch)
+
+
+def zoo_state_dict_from_jax(variables: Mapping[str, Tree], arch: str,
+                            per_view: bool = True
+                            ) -> Dict[str, torch.Tensor]:
+    """JAX ``build_seg_model`` variables of a zoo arch (``unet``,
+    ``multiview_unet``, ``unet:<kind>``, ``utnet``, ``cen``,
+    ``res3dunet``) → the port adapter's state dict (``models/registry.py``).
+
+    2-D kernels HWIO → OIHW, 3-D kernels DHWIO → OIDHW, depthwise kernels
+    (3, 3, 1, C) → (C, 1, 3, 3) by the same rule; a per-view stacked tree
+    (JAX ``nn.vmap``) becomes ``.{i}`` modules; BatchNorm ``scale/bias`` and
+    ``mean/var`` become ``weight/bias/running_mean/running_var``, CEN's
+    stacked (S, C) StreamBN leaves as they are; res3dunet's flax
+    ``ConvTranspose`` kernels have their taps flipped (``_zoo_kernel``); a
+    PReLU's ``alpha`` is ``prelu.weight``; TPAVI as ``tpavi_state_dict``.
+    ``per_view=False``: the arch's network alone, not lifted over views.
+    """
+    sd: Dict[str, torch.Tensor] = {}
+    _zoo_walk(sd, "", (), variables["params"],
+              variables.get("batch_stats", {}),
+              _zoo_per_view(arch) if per_view else (), arch)
+    return sd

@@ -38,7 +38,7 @@ FORMAT = "glfusion_tpu_torch.torch_export.v1"
 
 
 class ServingForward(torch.nn.Module):
-    """The flagship's serving forward: images → uint8 masks."""
+    """A model's serving forward: images → uint8 masks."""
 
     def __init__(self, model: torch.nn.Module):
         super().__init__()
@@ -55,6 +55,11 @@ def export_serving_forward(cfg, model: torch.nn.Module,
     model's) with a symbolic frame axis (any T from 1 to ``clip_length``
     at run time). ``hw`` pins the spatial size (default
     ``cfg.data.crop_hw``)."""
+    if cfg.model.arch == "res3dunet":
+        raise ValueError(
+            "res3dunet has no export with a symbolic frame axis: its adapter "
+            "pads the frames to a multiple of 8 (JAX's export fails the "
+            "same way)")
     if device is None:
         device = next(model.parameters()).device
     fwd = ServingForward(model).to(device).eval()
