@@ -101,6 +101,14 @@ nonzero:
           held against its float64 twin on the card; res3dunet's loss with
           and without its deep-supervision maps; K1's and the stems'
           launch counts unmoved by the phase.
+  regression  the mPAP regressors (``--reg-model``: Resnet50PAH,
+          R(2+1)D-18, TimeSformer, Resnet50PFS) at full width, float32, 3
+          views of 48 frames at 112², batch 8: each trains one epoch of 2
+          steps through ``RegressionTrainer`` on a 24-patient synthetic
+          corpus (s/step, peak memory), ``evaluate()`` (finite scores), an
+          eval forward timed, counted and held against its float64 twin on
+          the card, and a checkpoint restored by a fresh trainer bit for
+          bit; one line a model; K1's and the stems' launch counts unmoved.
 
 The last lines are the kernels' record, the card's ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``. Without CUDA, or outside a checkout, it
@@ -237,6 +245,12 @@ VARIANT_IN_SITU_K1 = ("fg_bg", "conv_merge", "local_only")
 ZOO_ARCHS = ("unet", "unet:plain", "unet:r2", "unet:att", "unet:r2att",
              "multiview_unet", "utnet", "cen", "res3dunet")
 ZOO_TOL = 1e-4
+# regression: the four --reg-model names at JAX's full-width defaults,
+# float32, on a synthetic corpus of REG_PATIENTS patients (16 train: 2 steps
+# of 8 an epoch, 3 val), 3 views, crop 112², 48 frames; each eval forward
+# held against its float64 twin on the card within REG_TOL
+REG_ARCHS = ("resnet50pah", "r2plus1d", "timesformer", "resnet50pfs")
+REG_PATIENTS, REG_STEPS, REG_TOL = 24, 2, 1e-4
 # infer against serve: a voxel's mask may differ only where the clip's
 # logit there lies this close to the threshold 0
 MASK_FLIP_LOGIT = 1e-3
@@ -2314,6 +2328,138 @@ def zoo_phase(torch, data_paths) -> dict:
     return records
 
 
+def regression_phase(torch) -> dict:
+    """The mPAP regression path (``--mode reg-train|reg-val``) at full
+    width, float32: each of ``REG_ARCHS`` (``build_reg_model`` with no
+    overrides) trains one epoch of ``REG_STEPS`` steps through
+    ``RegressionTrainer`` (the second step timed) on a synthetic corpus of
+    ``REG_PATIENTS`` patients, then ``evaluate()`` (every score finite);
+    an eval forward of the val batch is timed (``utils/profiling.time_fn``),
+    counted (``flops_of``) and held against the same module in float64 on
+    the card within ``REG_TOL`` in relative norm (cuDNN's 3-D, dilated 3-D
+    and transposed 3-D convolutions, which the CPU tests never run at this
+    size); the checkpoint saved after the epoch, restored by a fresh
+    trainer, equals the trained state bit for bit (weights, BN buffers,
+    Adam, the schedule). No regressor runs a hand-written kernel (JAX sends
+    none of them to Pallas): K1's and the stems' launch counts must not
+    move across the phase."""
+    from glfusion_tpu_torch.config import Config
+    from glfusion_tpu_torch.data.synthetic import generate_synthetic_dataset
+
+    before = _counts(torch)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_reg_"))
+    try:
+        cfg = Config()
+        cfg = cfg.replace(data=dataclasses.replace(
+            cfg.data, synthetic_num_patients=REG_PATIENTS))
+        t0 = time.perf_counter()
+        paths = generate_synthetic_dataset(tmp / "data", cfg.data,
+                                           views=cfg.model.views,
+                                           seed=cfg.train.seed)
+        corpus_s = time.perf_counter() - t0
+        records = {name: _regression(torch, cfg, paths, tmp / name, name)
+                   for name in REG_ARCHS}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    after = _counts(torch)
+    check(after == before,
+          f"regression: kernel launches moved {before} → {after}")
+    emit("regression_launches", corpus_s=corpus_s, launches_before=before,
+         launches_after=after)
+    return records
+
+
+def _regression(torch, cfg, paths, save_dir: Path, name: str) -> dict:
+    """One regressor of ``regression_phase``; emits its line."""
+    from glfusion_tpu_torch.models.registry import build_reg_model
+    from glfusion_tpu_torch.train.regression import RegressionTrainer
+    from glfusion_tpu_torch.train.train_state import state_payload
+    from glfusion_tpu_torch.utils.profiling import flops_of, time_fn
+
+    cfg = cfg.replace(train=dataclasses.replace(cfg.train,
+                                                save_dir=str(save_dir)))
+    views = cfg.model.num_views
+    torch.manual_seed(0)
+    model, adapter = build_reg_model(name, views)
+    trainer = RegressionTrainer(cfg, model, paths, input_adapter=adapter)
+    check(trainer.steps_per_epoch == REG_STEPS,
+          f"{name}: {trainer.steps_per_epoch} steps an epoch")
+    step_s, inner = [], trainer.train_step
+
+    def timed_step(batch):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = inner(batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        return out
+
+    trainer.train_step = timed_step
+    _free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    metrics = trainer.train_epoch(0)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    check(metrics["steps"] == REG_STEPS and math.isfinite(metrics["loss"]),
+          f"{name}: {metrics}")
+    t0 = time.perf_counter()
+    scores = trainer.evaluate()
+    evaluate_s = time.perf_counter() - t0
+    check(set(scores) == {"mse", "mae", "rmse", "r2"}
+          and all(math.isfinite(v) for v in scores.values()),
+          f"{name}: scores {scores}")
+
+    x = trainer._batch(next(trainer.val_loader.batches(
+        cfg.train.batch_size)), False)["clips"]
+    model.eval()
+    with torch.inference_mode():
+        out = model(x)
+        fwd_s = time_fn(lambda t: model(t), x, iters=3)
+        flop = flops_of(lambda t: model(t), x)
+        twin = copy.deepcopy(model).double()
+        out64 = twin(x.double())
+    errs = {}
+    outs = out if isinstance(out, tuple) else (out,)  # Resnet50PFS: + seg
+    refs = out64 if isinstance(out64, tuple) else (out64,)
+    for k, t, ref in zip(("out", "seg"), outs, refs):
+        check(bool(torch.isfinite(t).all()), f"{name}: {k} not finite")
+        errs[k] = rel_norm(t, ref)
+        check(errs[k] <= REG_TOL, f"{name}: eval {k} against float64 "
+              f"relative norm {errs[k]} > {REG_TOL}")
+    del twin, out64
+
+    t0 = time.perf_counter()
+    trainer.save(0, wait=True)
+    save_s = time.perf_counter() - t0
+    torch.manual_seed(1)  # other initial weights, overwritten by the load
+    fresh, fresh_adapter = build_reg_model(name, views)
+    restored = RegressionTrainer(cfg, fresh, paths,
+                                 input_adapter=fresh_adapter)
+    t0 = time.perf_counter()
+    check(restored.load_latest() and restored.epoch == 1,
+          f"{name}: no checkpoint restored")
+    load_s = time.perf_counter() - t0
+    want = state_payload(model, trainer.optimizer, trainer.scheduler)
+    diff = state_diff(torch, want, state_payload(
+        fresh, restored.optimizer, restored.scheduler))
+    check(not diff, f"{name}: restored state differs at {diff[:5]}")
+    net, side = trainer.ckpt.paths(0)
+    rec = dict(model=name, s_per_step=step_s[-1], step_s=step_s,
+               max_memory_allocated=peak, loss=metrics["loss"],
+               scores=scores, evaluate_s=evaluate_s, eval_ms=fwd_s * 1e3,
+               eval_flop=flop, eval_batch=list(x.shape),
+               params=sum(p.numel() for p in model.parameters()),
+               rel_err_vs_float64=errs, checkpoint_bytes=(
+                   net.stat().st_size + side.stat().st_size),
+               save_s=save_s, load_latest_s=load_s,
+               restored_leaves=_leaves(want), restored_bitwise=True)
+    emit("regression", dtype="float32", batch=cfg.train.batch_size,
+         steps=REG_STEPS, **rec)
+    del trainer, restored, model, fresh, out, x
+    _free(torch)
+    return rec
+
+
 def _du(path: Path) -> int:
     return sum(p.stat().st_size for p in path.rglob("*") if p.is_file())
 
@@ -2761,6 +2907,7 @@ def main() -> None:
         ("checkify", checkify_phase), ("train_bf16", train_bf16_phase),
         ("lifecycle", lifecycle_phase), ("variants", variants_phase))]
     timed("zoo", zoo_phase, paths)  # runs no kernel (asserted)
+    timed("regression", regression_phase)  # runs no kernel (asserted)
     emit("seconds", **seconds, total=sum(seconds.values()))
 
     main_rec = records[(SERVE_SHAPE, "float32")]

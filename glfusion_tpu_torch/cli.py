@@ -17,7 +17,16 @@ continues it.
 TF32 policy: in float32 the CLI turns TF32 off for cuBLAS and cuDNN, so
 "float32" is IEEE float32, as in the JAX package's tests, on the CPU and in
 every figure measured on the card; bfloat16 leaves PyTorch's settings as
-they are. The regression modes are ROADMAP Queue 1.
+they are.
+
+``--mode reg-train|reg-val`` drive the mPAP video-regression path (the
+reference's ``PAHDataset``, which its entry point never wires):
+``--reg-model`` picks one of the four regressors of
+``models/registry.build_reg_model`` and ``--label-type`` the target;
+``train/regression.RegressionTrainer`` trains or scores it, and the last
+line is strict JSON (``label``, ``mse``, ``mae``, ``rmse``, ``r2``; a
+non-finite score is ``null``). reg-val scores the newest checkpoint, or
+says there is none and scores fresh weights, as JAX's does.
 """
 
 from __future__ import annotations
@@ -27,13 +36,21 @@ import dataclasses
 import os
 from pathlib import Path
 
-from glfusion_tpu_torch.arch_names import SEG_ARCHS
+from glfusion_tpu_torch.arch_names import REG_ARCHS, SEG_ARCHS
 from glfusion_tpu_torch.config import ALL_VIEWS, Config, tiny_config
 
 # JAX's --variant choices; 'temporal' is a train switch on the plain model
 VARIANTS = ("global_and_local", "global_only", "local_only", "cyc_nofusion",
             "global_only_cyc_nofusion", "conv_merge", "fg_bg",
             "early_fusion", "late_fusion", "cps", "temporal")
+# --tiny's regressors (JAX cli.py:262-269)
+TINY_REG = {
+    "resnet50pah": dict(depth=10),
+    "r2plus1d": dict(layers=(1, 1, 1, 1), widths=(8, 16, 32, 64)),
+    "timesformer": dict(dim=32, depth=1, heads=2, dim_head=16, patch_size=8),
+    "resnet50pfs": dict(main_depth=10, proj_depth=10,
+                        widths=(8, 16, 32, 64)),
+}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -42,7 +59,8 @@ def build_parser() -> argparse.ArgumentParser:
         description="GL-Fusion multi-view echocardiogram segmentation "
                     "(PyTorch, one NVIDIA H100)")
     p.add_argument("--mode", choices=["train", "val", "visual", "infer",
-                                      "serve", "export"], default="train",
+                                      "serve", "export", "reg-train",
+                                      "reg-val"], default="train",
                    help="train (then validate each epoch); val, visual, "
                         "infer, serve and export use the newest checkpoint "
                         "under --save-dir (or --torch-ckpt): val evaluates, "
@@ -50,12 +68,19 @@ def build_parser() -> argparse.ArgumentParser:
                         "serve writes them through the pipelined "
                         "ClipPipeline (or, with --http-port, answers "
                         "requests), export writes a torch.export program "
-                        "of the serving forward")
+                        "of the serving forward; reg-train and reg-val "
+                        "train and score the mPAP video regressor "
+                        "(--reg-model, --label-type)")
     p.add_argument("--model", default="glfusion", choices=list(SEG_ARCHS),
                    help="trainable architecture (models/registry.py): the "
                         "flagship and the zoo (unet, multiview_unet, "
                         "unet:<kind>, utnet, cen, res3dunet); the AVS family "
                         "and the legacy kinds are not ported yet")
+    p.add_argument("--reg-model", default="resnet50pah",
+                   choices=list(REG_ARCHS),
+                   help="regression architecture for --mode reg-*")
+    p.add_argument("--label-type", default="mPAP", choices=["mPAP", "Vmax"],
+                   help="regression target column (reference loader.py:140)")
     p.add_argument("--variant", default="global_and_local", choices=VARIANTS,
                    help="'cps' = the cross-pseudo-supervision twin; "
                         "'temporal' = cycle clips run video attention over "
@@ -252,6 +277,66 @@ def _train(trainer) -> None:
         signal.signal(signal.SIGTERM, prev)
 
 
+def _run_regression(args: argparse.Namespace, cfg: Config,
+                    data_paths) -> int:
+    """--mode reg-train / reg-val: the mPAP video-regression path."""
+    import json
+    import math
+
+    import torch
+
+    from glfusion_tpu_torch.models.registry import build_reg_model
+    from glfusion_tpu_torch.train.regression import RegressionTrainer
+
+    if args.torch_ckpt is not None or args.imagenet_backbone is not None:
+        raise SystemExit("error: --torch-ckpt and --imagenet-backbone load "
+                         "the segmentation flagship's weights; the "
+                         "regression models have no reference checkpoint")
+    if data_paths is None:
+        import tempfile
+
+        from glfusion_tpu_torch.data.synthetic import (
+            generate_synthetic_dataset)
+        tmp = tempfile.mkdtemp(prefix="glfusion_torch_synth_")
+        data_paths = generate_synthetic_dataset(
+            tmp, cfg.data, views=cfg.model.views, seed=cfg.train.seed)
+        print(f"[glfusion_torch] synthetic dataset generated under {tmp}",
+              flush=True)
+    torch.manual_seed(cfg.train.seed)  # the initial weights
+    model, adapter = build_reg_model(
+        args.reg_model, cfg.model.num_views, dtype=cfg.model.dtype,
+        **(TINY_REG[args.reg_model] if args.tiny else {}))
+    trainer = RegressionTrainer(cfg, model, data_paths,
+                                label_type=args.label_type,
+                                input_adapter=adapter, device=args.platform)
+    tc = cfg.train
+    if args.mode == "reg-train":
+        if args.resume and trainer.load_latest():
+            print(f"[glfusion_torch] resumed at epoch {trainer.epoch}",
+                  flush=True)
+        for epoch in range(trainer.epoch, tc.num_epochs):
+            m = trainer.train_epoch(epoch)
+            print(f"[glfusion_torch] reg epoch {epoch}: loss="
+                  f"{m['loss']:.4f} ({m['steps']} steps)", flush=True)
+            if ((tc.save_every_epochs > 0
+                 and (epoch + 1) % tc.save_every_epochs == 0)
+                    or epoch == tc.num_epochs - 1):
+                trainer.save(epoch)
+        trainer.ckpt.wait()
+    elif trainer.load_latest():  # reg-val scores the newest checkpoint
+        print("[glfusion_torch] reg-val: scoring the checkpoint of epoch "
+              f"{trainer.epoch - 1}", flush=True)
+    else:
+        print("[glfusion_torch] reg-val: no checkpoint found under "
+              f"{tc.save_dir}; evaluating fresh init", flush=True)
+    metrics = trainer.evaluate()
+    # strict JSON: a NaN or inf score (diverged weights) becomes null
+    metrics = {k: (v if math.isfinite(v) else None)
+               for k, v in metrics.items()}
+    print(json.dumps({"label": args.label_type, **metrics}))
+    return 0
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if args.debug_nans:
@@ -267,6 +352,8 @@ def _main(args: argparse.Namespace) -> int:
     apply_tf32_policy(cfg)
     data_paths = (None if args.data_root is None
                   else data_paths_from_root(args.data_root, cfg))
+    if args.mode in ("reg-train", "reg-val"):
+        return _run_regression(args, cfg, data_paths)
     if args.imagenet_backbone is not None and args.torch_ckpt is not None:
         raise SystemExit("error: --imagenet-backbone is an initialization; "
                          "--torch-ckpt loads a full checkpoint — pick one")

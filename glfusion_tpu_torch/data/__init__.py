@@ -14,7 +14,9 @@ from glfusion_tpu_torch.data.pipeline import (  # noqa: F401
     AlignedClipLoader,
     AllMaskFrameLoader,
     FullVideoLoader,
+    RegressionClipLoader,
     SegFrameLoader,
     TestClipLoader,
     preprocess_batch,
+    preprocess_regression_batch,
 )

@@ -8,7 +8,9 @@ The port of ``glfusion_tpu/data/pipeline.py``. Split of work:
            the train, cycle and test loaders, and the two whole-label
            loaders ``AllMaskFrameLoader`` and ``FullVideoLoader``);
   device — paired random (train) or center (eval) crop to 112², /255, raw
-           label → 5-structure one-hot (``preprocess_batch``).
+           label → 5-structure one-hot (``preprocess_batch``); the
+           regression clips' crop and /255 (``preprocess_regression_batch``,
+           for ``RegressionClipLoader``'s batches).
 
 The JAX package's native C++ decoder and its background warm-up of the
 frame cache are ROADMAP M15b; the port decodes with the pure-Python reader.
@@ -240,6 +242,83 @@ class AlignedClipLoader:
                 yield out
 
 
+class RegressionClipLoader:
+    """Multi-view video clips and a scalar target (``PAHDataset``,
+    reference loader.py:35-189; JAX ``data/pipeline.py:443-520``).
+
+    Per patient each view is nearest-resized (the float32 index rule) to
+    ``resize_hw``² × ``reg_clip_frames``; the target is ``label_type``
+    (``mPAP`` or ``Vmax``), and patients whose target is missing or NaN
+    are skipped. Yields host batches: ``clips_raw`` (V, B, R, R, T) float32
+    raw intensity, missing views zero, and ``targets`` (B,) float32;
+    ``preprocess_regression_batch`` crops and scales on the device. Train
+    batches are shuffled by ``RandomState(seed + epoch)`` and drop the
+    last short batch; eval batches keep it. Resized volumes stay in a
+    byte-bounded LRU.
+    """
+
+    def __init__(self, index: PatientIndex, ids: Sequence[str],
+                 views: Sequence[str], cfg: Config, is_train: bool,
+                 label_type: str = "mPAP", seed: int = 0):
+        self.index = index
+        self.views = tuple(views)
+        self.cfg = cfg
+        self.is_train = is_train
+        self.label_type = label_type
+        self.seed = seed
+        self.ids = [
+            i for i in ids if i in index.records
+            and index.records[i].get(label_type) is not None
+            and not np.isnan(index.records[i][label_type])
+        ]
+        self._cache = ByteLRU(4 << 30)
+
+    def __len__(self) -> int:
+        return len(self.ids)
+
+    def _load(self, pid: str, view: str, t: int, r: int):
+        key = (pid, view)
+        hit = self._cache.get(key)
+        if hit is not MISS:
+            return hit
+        img_p, _ = self.index.view_paths(pid, view)
+        if img_p is None:
+            entry = None
+        else:
+            vol = np.asarray(read_nifti(img_p), np.float32).squeeze()
+            # nearest resize H, W → r and T → t (MONAI Resized semantics)
+            hi = _nearest_indices_np(r, vol.shape[0])
+            wi = _nearest_indices_np(r, vol.shape[1])
+            ti = _nearest_indices_np(t, vol.shape[2])
+            entry = vol[hi][:, wi][:, :, ti]
+        self._cache.put(key, entry)
+        return entry
+
+    def batches(self, batch_size: int, epoch: int = 0) -> Iterator[dict]:
+        rs = np.random.RandomState(self.seed + epoch if self.is_train
+                                   else self.seed)
+        order = np.arange(len(self.ids))
+        if self.is_train:
+            rs.shuffle(order)
+        r = self.cfg.data.resize_hw
+        t = self.cfg.data.reg_clip_frames
+        nb = (len(order) // batch_size if self.is_train
+              else -(-len(order) // batch_size))
+        for b in range(nb):
+            take = order[b * batch_size:(b + 1) * batch_size]
+            clips = np.zeros((len(self.views), len(take), r, r, t),
+                             np.float32)
+            targets = np.zeros(len(take), np.float32)
+            for bi, oi in enumerate(take):
+                pid = self.ids[oi]
+                targets[bi] = float(self.index.records[pid][self.label_type])
+                for vi, view in enumerate(self.views):
+                    vol = self._load(pid, view, t, r)
+                    if vol is not None:
+                        clips[vi, bi] = vol
+            yield {"clips_raw": clips, "targets": targets}
+
+
 class TestClipLoader:
     """Raw evaluation clips (``Test_Seg_PAHDataset``): no transform, /255.
 
@@ -400,6 +479,36 @@ def preprocess_batch(images_raw: torch.Tensor, masks_raw: torch.Tensor, *,
     masks5 = torch.stack([mask_to_allclass(msks[i], vid)
                           for i, vid in enumerate(view_ids)])
     return {"images": images, "masks": masks5}
+
+
+def preprocess_regression_batch(clips_raw: torch.Tensor, *, crop_hw: int,
+                                is_train: bool,
+                                generator: torch.Generator | None = None,
+                                offsets: torch.Tensor | None = None
+                                ) -> torch.Tensor:
+    """Crop + /255 of regression clips on their device (``PAHDataset``'s
+    transform, reference loader.py:155-185): (V, B, R, R, T) → (V, B, c, c,
+    T) in [0, 1] (×float32(1/255), as XLA computes JAX's /255). One window
+    a sample, shared by its views and frames:
+    train draws it from ``generator`` (or takes ``offsets`` (B, 2)); eval
+    takes JAX's centre, ((R − c) // 2) on both axes."""
+    v, b, r, _, t = clips_raw.shape
+    c = crop_hw
+    if is_train:
+        if offsets is None:
+            offsets = random_offsets(generator, (r, r), (c, c), b)
+        offsets = offsets.reshape(b, 2).to(clips_raw.device)
+        ar = torch.arange(c, device=clips_raw.device)
+        rows = (offsets[:, 0:1] + ar)[:, :, None]
+        cols = (offsets[:, 1:2] + ar)[:, None, :]
+        n = torch.arange(b, device=clips_raw.device)[:, None, None]
+        out = clips_raw[:, n, rows, cols]  # (V, B, c, c, T)
+    else:
+        off = (r - c) // 2
+        out = clips_raw[:, :, off:off + c, off:off + c]
+    # XLA computes JAX's ``/ 255.0`` as a product with float32(1/255):
+    # the same product keeps the batches equal to JAX's bit for bit
+    return out * (1.0 / 255.0)
 
 
 def view_ids_tuple(views: Sequence[str]) -> tuple[int, ...]:

@@ -65,6 +65,10 @@ class _ComputeConv:
         return y + self.bias.to(dt).view(-1, *(1,) * (y.dim() - 2))
 
 
+class Conv1d(_ComputeConv, nn.Conv1d):
+    """``nn.Conv1d`` computing in ``compute_dtype``."""
+
+
 class Conv2d(_ComputeConv, nn.Conv2d):
     """``nn.Conv2d`` computing in ``compute_dtype``."""
 
@@ -89,7 +93,32 @@ def linear(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     outside float32 the product is rounded, then the bias added."""
     if dtype == torch.float32:
         return F.linear(x, weight, bias)
-    return F.linear(x.to(dtype), weight.to(dtype)) + bias.to(dtype)
+    y = F.linear(x.to(dtype), weight.to(dtype))
+    return y if bias is None else y + bias.to(dtype)
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` computing in ``compute_dtype`` (:func:`linear`)."""
+
+    def __init__(self, *args, compute_dtype: torch.dtype = torch.float32,
+                 **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return linear(x, self.weight, self.bias, self.compute_dtype)
+
+
+class LayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm`` that takes the compute type, normalizes a float32
+    copy outside float32 and rounds once (CUDA has no mixed-type
+    ``layer_norm``). flax's default eps is 1e-6, torch's 1e-5: callers
+    porting a flax ``nn.LayerNorm()`` pass ``eps=1e-6``."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype in (torch.float32, torch.float64):
+            return super().forward(x)
+        return super().forward(x.float()).to(x.dtype)
 
 
 class _MatmulF32(torch.autograd.Function):

@@ -20,25 +20,33 @@ from the SAME initial weights (one network deep-copied, as JAX's
 ``split_rngs={'params': False}`` gives); ``unet`` and ``multiview_unet``
 draw each view's encoder and decoder independently, as JAX's own
 ``_per_view`` does. The AVS family and the legacy kinds are ROADMAP Queue 1.
+
+``build_reg_model`` builds the four video regressors of ``--mode
+reg-train|reg-val`` (``REG_ARCHS``) with their input adapters: clips
+(V, B, H, W, T) → the model's (B, V, T, H, W).
 """
 
 from __future__ import annotations
 
 import copy
-from typing import Dict, Tuple
+from typing import Callable, Dict, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from glfusion_tpu_torch.arch_names import (AVS_FLAVORS, LEGACY_KINDS,
-                                           SEG_ARCHS, UNET_KINDS)
+                                           REG_ARCHS, SEG_ARCHS, UNET_KINDS)
 from glfusion_tpu_torch.config import ModelConfig
 from glfusion_tpu_torch.models.cen import CENRefineNet
 from glfusion_tpu_torch.models.glfusion import build_model
+from glfusion_tpu_torch.models.mriresnet3d import Resnet50PFS
 from glfusion_tpu_torch.models.multiview_unet import MultiviewUNet
 from glfusion_tpu_torch.models.precision import compute_dtype
+from glfusion_tpu_torch.models.r2plus1d import R2Plus1D18
 from glfusion_tpu_torch.models.res3dunet import ResUNet3D
+from glfusion_tpu_torch.models.resnet3d import Resnet50PAH
+from glfusion_tpu_torch.models.timesformer import TimeSformer
 from glfusion_tpu_torch.models.unet import UNet
 from glfusion_tpu_torch.models.utnet import UTNet
 from glfusion_tpu_torch.ops.resize import resize_bilinear_nchw
@@ -205,3 +213,39 @@ def build_seg_model(cfg: ModelConfig, hw: int = 112
             f"arch {arch!r}: the AVS family and the legacy kinds are ROADMAP "
             "Queue 1 (the second half of M13)")
     raise ValueError(f"unknown arch {arch!r}; choose from {SEG_ARCHS}")
+
+
+# ------------------------------------------------------------- regression
+
+def _views_to_channels(clips: torch.Tensor) -> torch.Tensor:
+    """(V, B, H, W, T) → (B, V, T, H, W): the views are the Conv3d input
+    channels (JAX's (B, T, H, W, V) in NCDHW). In NCDHW this is also the
+    views axis of single-channel videos that TimeSformer and Resnet50PFS
+    take (JAX's ``_views_axis``), so all four regressors share it."""
+    return clips.permute(1, 0, 4, 2, 3).contiguous()
+
+
+def build_reg_model(name: str, num_views: int, dtype: str = "float32",
+                    **overrides) -> Tuple[nn.Module, Callable]:
+    """``(module, input_adapter)`` of a ``--reg-model`` name for the
+    ``RegressionTrainer`` (JAX ``build_reg_model``). ``overrides`` are the
+    JAX modules' fields (``depth``, ``widths`` …); ``num_views`` sizes the
+    input (JAX infers it); ``dtype`` is the compute type, parameters stay
+    float32."""
+    dt = compute_dtype(dtype)
+    if name == "resnet50pah":
+        return (Resnet50PAH(num_views, dtype=dt, **overrides),
+                _views_to_channels)
+    if name == "r2plus1d":
+        return (R2Plus1D18(num_views, num_classes=1, dtype=dt, **overrides),
+                _views_to_channels)
+    if name == "timesformer":
+        return (TimeSformer(num_views, num_classes=1, dtype=dt, **overrides),
+                _views_to_channels)
+    if name == "resnet50pfs":
+        # the views are the PFS regressor's modality axis (reference
+        # mriresnet3d.py:271,306-308)
+        return (Resnet50PFS(num_views, n_outputs=1, dtype=dt, **overrides),
+                _views_to_channels)
+    raise ValueError(f"unknown regression model {name!r}; "
+                     f"choose from {REG_ARCHS}")

@@ -70,6 +70,28 @@ def step_seed(seed: int, epoch: int, step: int) -> int:
     return (int(words[0]) << 31) ^ int(words[1])
 
 
+@contextlib.contextmanager
+def step_randomness(seed: int, epoch: int, step: int, device: torch.device):
+    """One train step's randomness: yields the generator of its crops (and
+    the cycle starts), with the global RNG (dropout) seeded too, both from
+    ``step_seed``; the global RNG's state is put back after."""
+    s = step_seed(seed, epoch, step)
+    cuda = device.type == "cuda"
+    with torch.random.fork_rng(devices=[device.index or 0] if cuda else [],
+                               device_type="cuda"):
+        torch.manual_seed(s)
+        yield torch.Generator(device=device).manual_seed(s)
+
+
+def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host batch array on ``device``: on CUDA through pinned memory,
+    without blocking the host."""
+    t = torch.from_numpy(a)
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t
+
+
 def _sum(a, b):
     if isinstance(a, dict):
         return {k: _sum(a[k], b[k]) for k in a}
@@ -303,18 +325,9 @@ class Trainer:
             self.summary.flush()
         return last
 
-    @contextlib.contextmanager
     def step_randomness(self, epoch: int, step: int):
-        """One train step's randomness: yields the generator of its crops
-        and cycle starts, with the global RNG (dropout) seeded too, both
-        from ``step_seed``; the global RNG's state is put back after."""
-        seed = step_seed(self.cfg.train.seed, epoch, step)
-        cuda = self.device.type == "cuda"
-        with torch.random.fork_rng(
-                devices=[self.device.index or 0] if cuda else [],
-                device_type="cuda"):
-            torch.manual_seed(seed)
-            yield torch.Generator(device=self.device).manual_seed(seed)
+        """One train step's randomness (:func:`step_randomness`)."""
+        return step_randomness(self.cfg.train.seed, epoch, step, self.device)
 
     def _cycle_clips(self, epoch: int):
         """Endless cycle clips of the epoch (restarted on exhaustion), or
@@ -340,10 +353,7 @@ class Trainer:
         return restarting(gen, first)
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
-        t = torch.from_numpy(a)
-        if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t
+        return to_device(a, self.device)
 
     def train_batch(self, host_batch: dict, cycle_iter,
                     generator: torch.Generator) -> dict:

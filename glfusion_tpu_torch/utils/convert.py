@@ -31,6 +31,7 @@ from typing import Dict, Mapping, Sequence
 import numpy as np
 import torch
 
+from glfusion_tpu_torch.arch_names import REG_ARCHS
 from glfusion_tpu_torch.config import ModelConfig
 
 Tree = Mapping[str, "Tree | np.ndarray"]
@@ -293,4 +294,54 @@ def zoo_state_dict_from_jax(variables: Mapping[str, Tree], arch: str,
     _zoo_walk(sd, "", (), variables["params"],
               variables.get("batch_stats", {}),
               _zoo_per_view(arch) if per_view else (), arch)
+    return sd
+
+
+# ---------------------------------------------------------- the regressors
+
+def _reg_walk(sd: Dict, key: str, p: Tree, s: Tree, flip: tuple) -> None:
+    """The flax module tree ``p`` (batch stats ``s``) under port key
+    ``key``; the port's module names are JAX's."""
+    for name, sub in p.items():
+        k = f"{key}.{name}" if key else name
+        if not isinstance(sub, Mapping):
+            if name == "conv_kernel":  # ECA's flax (k, 1, 1) WIO kernel
+                sd[f"{key}.conv.weight"] = _t(np.ascontiguousarray(
+                    np.transpose(np.asarray(sub), (2, 1, 0))))
+            else:  # TimeSformer's cls_token
+                sd[k] = _t(sub)
+        elif "kernel" in sub:  # Conv, ConvTranspose, Dense
+            sd[f"{k}.weight"] = _t(np.ascontiguousarray(_zoo_kernel(
+                np.asarray(sub["kernel"]), transposed=name in flip)))
+            if "bias" in sub:
+                sd[f"{k}.bias"] = _t(sub["bias"])
+        elif "scale" in sub:
+            if name in s:  # BatchNorm
+                _bn(sd, k, sub, s[name])
+            else:  # LayerNorm
+                sd[f"{k}.weight"] = _t(sub["scale"])
+                sd[f"{k}.bias"] = _t(sub["bias"])
+        else:
+            _reg_walk(sd, k, sub, s.get(name, {}), flip)
+
+
+def reg_state_dict_from_jax(variables: Mapping[str, Tree],
+                            name: str) -> Dict[str, torch.Tensor]:
+    """JAX ``build_reg_model`` variables of a regressor (``resnet50pah``,
+    ``r2plus1d``, ``timesformer``, ``resnet50pfs``) → the port module's
+    state dict (``models/registry.build_reg_model``; the names are JAX's).
+
+    Conv kernels DHWIO → OIDHW and Dense (I, O) → Linear (O, I)
+    (``_zoo_kernel``); Resnet50PFS's flax ``ConvTranspose`` ``seg_deconv``
+    with its taps flipped and in/out swapped; ECA's (k, 1, 1)
+    ``conv_kernel`` → ``eca.conv.weight`` (1, 1, k); BatchNorm leaves as
+    ``_bn``; LayerNorm ``scale/bias`` → ``weight/bias``; ``cls_token`` as
+    it is. No reference checkpoint exists for these models, so there is no
+    ``--torch-ckpt`` for them (JAX's ``utils/torch_convert.py`` maps none
+    either)."""
+    if name not in REG_ARCHS:
+        raise ValueError(f"reg_state_dict_from_jax: no mapping for {name!r}")
+    sd: Dict[str, torch.Tensor] = {}
+    _reg_walk(sd, "", variables["params"], variables.get("batch_stats", {}),
+              ("seg_deconv",) if name == "resnet50pfs" else ())
     return sd

@@ -144,6 +144,9 @@ def test_port_imports_no_jax():
     assert ROOT / "glfusion_tpu_torch" / "http_serve.py" in files
     for new in ("index_builder", "xlsx"):
         assert ROOT / "glfusion_tpu_torch" / "data" / f"{new}.py" in files
+    for new in ("models/resnet3d", "models/mriresnet3d", "models/r2plus1d",
+                "models/timesformer", "train/regression", "utils/scores"):
+        assert ROOT / "glfusion_tpu_torch" / f"{new}.py" in files
     banned = ("jax", "flax", "glfusion_tpu")
     for f in files:
         for mod in _imports(f):
