@@ -238,13 +238,20 @@ VARIANT_K1 = {"cyc_nofusion": 4, "conv_merge": 4, "fg_bg": 4,
               "global_only": 2, "global_only_cyc_nofusion": 2,
               "local_only": 2, "early_fusion": 0, "late_fusion": 0}
 VARIANT_IN_SITU_K1 = ("fg_bg", "conv_merge", "local_only")
-# zoo: the segmentation zoo's nine architectures at Config() widths, each
+# zoo: the segmentation zoo's twenty architectures at Config() widths, each
 # VARIANT_STEPS steps on the train phase's corpus (train_repeat
 # VARIANT_REPEAT), then one eval forward held against the same module in
 # float64 on the card within ZOO_TOL in relative norm
 ZOO_ARCHS = ("unet", "unet:plain", "unet:r2", "unet:att", "unet:r2att",
-             "multiview_unet", "utnet", "cen", "res3dunet")
+             "multiview_unet", "utnet", "cen", "res3dunet",
+             "avs_baseline", "avs_transfusion", "avs_model17",
+             "avs_pred_endecoder", "legacy:none", "legacy:channel_transformer",
+             "legacy:tpavi", "legacy:model18", "legacy:model20",
+             "legacy:decouple", "legacy:mlp_concat")
 ZOO_TOL = 1e-4
+# the parameters no loss reaches (CEN's ensemble logits, B2ResNet's second
+# layer3/layer4 fork): Adam moves them on the L2 term alone, as optax does
+ZOO_OUTSIDE_LOSS = ("net.alpha", "layer3_2_", "layer4_2_")
 # regression: the four --reg-model names at JAX's full-width defaults,
 # float32, on a synthetic corpus of REG_PATIENTS patients (16 train: 2 steps
 # of 8 an epoch, 3 val), 3 views, crop 112², 48 frames; each eval forward
@@ -2247,9 +2254,14 @@ def zoo_phase(torch, data_paths) -> dict:
     ``ZOO_TOL`` in relative norm: cuDNN's 3-D, transposed 3-D, depthwise
     and dilated convolutions, which the CPU tests never reach). For
     ``res3dunet`` the step's supervised loss on that batch, with and
-    without its three ``mask_aux`` maps. No zoo model runs a hand-written
-    kernel (JAX sends only the flagship's TPAVI to Pallas): K1's and the
-    stems' launch counts must not move across the phase."""
+    without its three ``mask_aux`` maps. The parameters no loss reaches
+    (``ZOO_OUTSIDE_LOSS``: CEN's ``alpha``, every B2ResNet's second fork)
+    must have moved in the steps, each element that was not 0 (Adam's L2
+    step, as optax's; a 0 stays 0). No zoo model runs a hand-written
+    kernel (JAX sends only the flagship's TPAVI to Pallas, and
+    ``use_pallas_fusion``, on here as in the flagship's configuration,
+    reaches no zoo TPAVI): K1's and the stems' launch counts must not move
+    across the phase."""
     from glfusion_tpu_torch.models import build_model
     from glfusion_tpu_torch.train.losses import bce_with_logits_sum
     from glfusion_tpu_torch.utils.profiling import flops_of, time_fn
@@ -2259,12 +2271,15 @@ def zoo_phase(torch, data_paths) -> dict:
     for arch in ZOO_ARCHS:
         cfg = _flagship_config()
         cfg = cfg.replace(
-            model=dataclasses.replace(cfg.model, arch=arch,
-                                      use_pallas_fusion=False),
+            model=dataclasses.replace(cfg.model, arch=arch),
             data=dataclasses.replace(cfg.data, train_repeat=VARIANT_REPEAT))
         torch.manual_seed(0)
         model, _ = build_model(cfg.model, hw=cfg.data.crop_hw)
         trainer, step_s = _timed_trainer(torch, cfg, data_paths, model)
+        outside = {k: p.detach().clone() for k, p in model.named_parameters()
+                   if any(n in k for n in ZOO_OUTSIDE_LOSS)}
+        check(bool(outside) == (arch == "cen" or arch.startswith("avs_")),
+              f"{arch}: {len(outside)} parameters outside the loss")
         step = trainer.train_step
         host = next(trainer.train_loader.batches(cfg.train.batch_size, 1))
         with trainer.step_randomness(1, 0) as gen:
@@ -2281,6 +2296,13 @@ def zoo_phase(torch, data_paths) -> dict:
         for k in ("loss", "seg_loss", "cyc_loss"):
             check(math.isfinite(metrics[k]) and metrics[k] > 0,
                   f"{arch}: {k} = {metrics[k]}")
+        params = dict(model.named_parameters())
+        for k, was in outside.items():
+            now = params[k].detach()
+            check(bool((now != was)[was != 0].all())
+                  and bool((now == was)[was == 0].all()),
+                  f"{arch}: {k}, outside the loss, did not take Adam's L2 "
+                  "step")
 
         model.eval()
         with torch.inference_mode():
@@ -2299,6 +2321,7 @@ def zoo_phase(torch, data_paths) -> dict:
                 check(errs[name] <= ZOO_TOL, f"{arch}: eval {name} against "
                       f"float64 relative norm {errs[name]} > {ZOO_TOL}")
         rec = dict(s_per_step=step_s[-1], step_s=step_s,
+                   outside_loss_moved=len(outside),
                    max_memory_allocated=peak, loss=metrics["loss"],
                    eval_ms=fwd_s * 1e3, eval_flop=flop,
                    eval_frames=list(images.shape[:2]),
@@ -2319,7 +2342,8 @@ def zoo_phase(torch, data_paths) -> dict:
             rec["seg_loss_with_aux"] = with_aux
             rec["seg_loss_without_aux"] = without
         records[arch] = rec
-        del trainer, model, twin, out, out64, images, masks, batch
+        del trainer, model, twin, out, out64, images, masks, batch, params
+        del outside
         _free(torch)
     after = _counts(torch)
     check(after == before, f"zoo: kernel launches moved {before} → {after}")

@@ -4,10 +4,17 @@ segmentation zoo, the video regressors and their building blocks.
 ``(module, is_cps)`` of a configuration's ``arch``; ``build_reg_model``
 gives ``(module, input_adapter)`` of a ``--reg-model`` name."""
 
+from glfusion_tpu_torch.models.avs import (AVSBaseline, AVSTransfusion,
+                                           B2ResNet, PredEndecoder)
 from glfusion_tpu_torch.models.glfusion import (GlobalAndLocal,
                                                 GlobalAndLocalCPS)
+from glfusion_tpu_torch.models.legacy_variants import (LegacyMultiviewSeg,
+                                                       SpatialConcatFusion,
+                                                       SpatialMLP)
 from glfusion_tpu_torch.models.registry import build_reg_model
 from glfusion_tpu_torch.models.registry import build_seg_model as build_model
 
-__all__ = ["GlobalAndLocal", "GlobalAndLocalCPS", "build_model",
+__all__ = ["AVSBaseline", "AVSTransfusion", "B2ResNet", "GlobalAndLocal",
+           "GlobalAndLocalCPS", "LegacyMultiviewSeg", "PredEndecoder",
+           "SpatialConcatFusion", "SpatialMLP", "build_model",
            "build_reg_model"]

@@ -19,7 +19,9 @@ Views of the per-view adapters (``unet:*``, ``utnet``, ``res3dunet``) start
 from the SAME initial weights (one network deep-copied, as JAX's
 ``split_rngs={'params': False}`` gives); ``unet`` and ``multiview_unet``
 draw each view's encoder and decoder independently, as JAX's own
-``_per_view`` does. The AVS family and the legacy kinds are ROADMAP Queue 1.
+``_per_view`` does. The AVS family (``avs_*``) shares its heads and decoder
+over the views (model17 draws a backbone a view); the legacy kinds
+(``legacy:*``) copy their per-view modules as the flagship does.
 
 ``build_reg_model`` builds the four video regressors of ``--mode
 reg-train|reg-val`` (``REG_ARCHS``) with their input adapters: clips
@@ -28,7 +30,6 @@ reg-train|reg-val`` (``REG_ARCHS``) with their input adapters: clips
 
 from __future__ import annotations
 
-import copy
 from typing import Callable, Dict, Tuple
 
 import torch
@@ -38,8 +39,12 @@ import torch.nn.functional as F
 from glfusion_tpu_torch.arch_names import (AVS_FLAVORS, LEGACY_KINDS,
                                            REG_ARCHS, SEG_ARCHS, UNET_KINDS)
 from glfusion_tpu_torch.config import ModelConfig
+from glfusion_tpu_torch.models.avs import (AVSBaseline, AVSTransfusion,
+                                           PredEndecoder)
 from glfusion_tpu_torch.models.cen import CENRefineNet
 from glfusion_tpu_torch.models.glfusion import build_model
+from glfusion_tpu_torch.models.legacy_variants import (LegacyMultiviewSeg,
+                                                       per_view)
 from glfusion_tpu_torch.models.mriresnet3d import Resnet50PFS
 from glfusion_tpu_torch.models.multiview_unet import MultiviewUNet
 from glfusion_tpu_torch.models.precision import compute_dtype
@@ -50,12 +55,6 @@ from glfusion_tpu_torch.models.timesformer import TimeSformer
 from glfusion_tpu_torch.models.unet import UNet
 from glfusion_tpu_torch.models.utnet import UTNet
 from glfusion_tpu_torch.ops.resize import resize_bilinear_nchw
-
-
-def _per_view(net: nn.Module, views: int) -> nn.ModuleList:
-    """``views`` copies of one freshly built network (``net.{i}``)."""
-    return nn.ModuleList([net] + [copy.deepcopy(net)
-                                  for _ in range(views - 1)])
 
 
 def _images(x: torch.Tensor, i: int) -> torch.Tensor:
@@ -95,7 +94,7 @@ class UNetFamilyAdapter(nn.Module):
     def __init__(self, cfg: ModelConfig, recurrent: bool, attention: bool):
         super().__init__()
         widths = tuple(cfg.stem_width * 2 ** i for i in range(5))
-        self.net = _per_view(UNet(
+        self.net = per_view(UNet(
             out_channels=cfg.num_classes, widths=widths, recurrent=recurrent,
             attention=attention, return_features=True,
             dtype=compute_dtype(cfg.dtype)), cfg.num_views)
@@ -113,7 +112,7 @@ class UTNetAdapter(nn.Module):
 
     def __init__(self, cfg: ModelConfig, hw: int):
         super().__init__()
-        self.net = _per_view(UTNet(
+        self.net = per_view(UTNet(
             num_classes=cfg.num_classes, base=max(cfg.stem_width // 2, 2),
             reduce_size=max(hw // 16, 1), return_features=True,
             dtype=compute_dtype(cfg.dtype)), cfg.num_views)
@@ -157,7 +156,7 @@ class Res3DUNetAdapter(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         base = max(cfg.stem_width // 4, 2)
-        self.net = _per_view(ResUNet3D(
+        self.net = per_view(ResUNet3D(
             out_channels=cfg.num_classes,
             widths=tuple(base * 2 ** i for i in range(5)),
             return_logits=True, return_features=True,
@@ -186,12 +185,83 @@ class Res3DUNetAdapter(nn.Module):
             mask_aux=tuple(stacked(k) for k in range(3)))
 
 
+class AVSAdapter(nn.Module):
+    """The AVS family under the multi-view contract (``channel`` is
+    ``aspp_channels``); the deepest post-fusion stage is the cycle-feature
+    tap. ``baseline``: AVSBaseline; ``transfusion``: AVSTransfusion with
+    the channel transformer; ``model17``: per-view backbones and TPAVI;
+    ``pred_endecoder``: each view decoded as the main one with its ring
+    neighbour (v + 1) mod V as the other, through one shared network. The
+    mask is resized (align_corners=False) to the input only where the
+    decoder's output differs from it."""
+
+    def __init__(self, cfg: ModelConfig, flavor: str, hw: int):
+        super().__init__()
+        self.pred = flavor == "pred_endecoder"
+        dt = compute_dtype(cfg.dtype)
+        kw = dict(num_classes=cfg.num_classes, widths=tuple(cfg.widths),
+                  blocks=tuple(cfg.block_sizes), dtype=dt)
+        if flavor == "baseline":
+            self.net = AVSBaseline(**kw)
+        elif self.pred:
+            self.net = PredEndecoder(channel=cfg.aspp_channels, **kw)
+        else:
+            self.net = AVSTransfusion(
+                cfg.num_views, hw, channel=cfg.aspp_channels,
+                fusion="transformer" if flavor == "transfusion" else "tpavi",
+                per_view_params=flavor == "model17", **kw)
+
+    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        v, b, hh, ww, _ = x.shape
+        if self.pred:
+            outs = [self.net(x[i], x[(i + 1) % v]) for i in range(v)]
+            mask = torch.stack([m for m, _ in outs])
+            feat = torch.stack([f for _, f in outs])
+        else:
+            mask, feat = self.net(x)
+        if mask.shape[2:4] != (hh, ww):
+            mask = resize_bilinear_nchw(
+                mask.flatten(0, 1).movedim(-1, 1), (hh, ww))
+            mask = _nhwc(mask).view(v, b, hh, ww, -1)
+        return _contract(mask, feat)
+
+
+# JAX's kinds of models/legacy_variants.py (reference ours.py's classes)
+LEGACY_KIND_KW = {
+    "none": dict(fusion="none"),  # Mutiview_Model / model6 / model7
+    # model3 / model8 / model12
+    "channel_transformer": dict(fusion="channel_transformer"),
+    "tpavi": dict(fusion="tpavi"),  # model19
+    "model18": dict(fusion="tpavi", shared_classifier=True),
+    # model20: stage-interleaved fusion
+    "model20": dict(fusion="tpavi", fusion_stages=(1, 2, 3, 4)),
+    # model21 / model21_for_specific_view
+    "decouple": dict(fusion="decouple_tpavi", shared_backbone=True,
+                     shared_classifier=True),
+    "mlp_concat": dict(fusion="mlp_concat"),  # MLP_fusion
+}
+
+
+class LegacyAdapter(nn.Module):
+    """The model3..model21 family under the train contract; the
+    post-fusion f4 is the cycle-feature tap."""
+
+    def __init__(self, cfg: ModelConfig, kind: str, hw: int):
+        super().__init__()
+        self.net = LegacyMultiviewSeg(cfg, hw, **LEGACY_KIND_KW[kind])
+
+    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        out = self.net(x)
+        return _contract(out["mask"], out["f4_fusion"])
+
+
 def build_seg_model(cfg: ModelConfig, hw: int = 112
                     ) -> Tuple[nn.Module, bool]:
     """``(module, is_cps)`` of ``cfg.arch`` (JAX ``build_seg_model``).
     ``glfusion`` keeps the flagship, its ablations and the CPS twin
     (``variant='cps'``). ``hw``: the crop size the model will see (UTNet's
-    attention grid is fixed by it)."""
+    attention grid, and the AVS and legacy channel transformers' Linear
+    layers, are sized by it)."""
     arch = cfg.arch
     if arch == "glfusion":
         return build_model(cfg)
@@ -207,11 +277,10 @@ def build_seg_model(cfg: ModelConfig, hw: int = 112
         kind = arch[5:]
         return UNetFamilyAdapter(cfg, recurrent="r2" in kind,
                                  attention="att" in kind), False
-    if ((arch.startswith("avs_") and arch[4:] in AVS_FLAVORS)
-            or (arch.startswith("legacy:") and arch[7:] in LEGACY_KINDS)):
-        raise NotImplementedError(
-            f"arch {arch!r}: the AVS family and the legacy kinds are ROADMAP "
-            "Queue 1 (the second half of M13)")
+    if arch.startswith("avs_") and arch[4:] in AVS_FLAVORS:
+        return AVSAdapter(cfg, arch[4:], hw), False
+    if arch.startswith("legacy:") and arch[7:] in LEGACY_KINDS:
+        return LegacyAdapter(cfg, arch[7:], hw), False
     raise ValueError(f"unknown arch {arch!r}; choose from {SEG_ARCHS}")
 
 

@@ -43,7 +43,8 @@ from glfusion_tpu_torch.serve import resolve_device
 from glfusion_tpu_torch.train.train_state import (load_payload,
                                                   make_optimizer,
                                                   make_scheduler,
-                                                  state_payload)
+                                                  state_payload,
+                                                  zero_fill_grads)
 from glfusion_tpu_torch.train.trainer import step_randomness, to_device
 from glfusion_tpu_torch.utils.checkpoint import CheckpointManager
 from glfusion_tpu_torch.utils.scores import mae, mse, r2, rmse
@@ -66,6 +67,7 @@ def make_regression_train_step(model: torch.nn.Module,
         pred = _prediction(model(batch["clips"]))
         loss = torch.mean((pred - batch["targets"]) ** 2)
         loss.backward()
+        zero_fill_grads(optimizer)
         optimizer.step()
         return {"loss": loss.detach(), "pred": pred.detach()}
 

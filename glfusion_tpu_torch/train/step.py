@@ -8,7 +8,9 @@ The port of the base path of ``glfusion_tpu/train/step.py`` (reference
      model returns as ``mask_aux``);
   2. the cycle forward on the per-view clips (frames as batch) →
      ``f4_global`` summed over space → one cycle loss per view;
-  3. one Adam step on the gradient of seg + cycle_weight·cyc.
+  3. one Adam step on the gradient of seg + cycle_weight·cyc; a parameter
+     neither loss reaches takes a zero gradient, as in JAX
+     (``train_state.zero_fill_grads``).
 
 BatchNorm running statistics update supervised → cycle, as the module
 calls run. The two passes are differentiated one after the other (the
@@ -53,6 +55,7 @@ from glfusion_tpu_torch.train.losses import (bce_with_logits_sum,
                                              dense_seg_cycle_loss,
                                              seg_cycle_loss)
 from glfusion_tpu_torch.train.metrics import confusion_counts
+from glfusion_tpu_torch.train.train_state import zero_fill_grads
 
 
 def supervised_view_indices(cfg: Config) -> tuple:
@@ -227,6 +230,7 @@ def make_train_step(cfg: Config, model: torch.nn.Module,
                 del out2
         seg, cyc = seg.detach(), cyc.detach()
         total = seg + tc.cycle_weight * cyc
+        zero_fill_grads(optimizer)
         if checker is not None:
             checker.record(total, [p.grad for p in model.parameters()
                                    if p.grad is not None])

@@ -36,6 +36,25 @@ def make_optimizer(cfg: Config,
                             weight_decay=cfg.opt.weight_decay)
 
 
+def zero_fill_grads(optimizer: torch.optim.Optimizer) -> None:
+    """Give every parameter of ``optimizer`` whose ``grad`` is None a zero
+    gradient; a train step calls this just before ``optimizer.step()``.
+
+    This follows the JAX package and departs from the reference. JAX's
+    chain (``add_decayed_weights`` then ``scale_by_adam``) sees a zero
+    gradient for a parameter the loss does not reach, adds the L2 term,
+    updates the moments and counts the step, so such a parameter moves by
+    about lr·sign(p) each step (CEN's ``alpha``, ``B2ResNet``'s second
+    fork). In the reference torch's Adam skips a parameter without a
+    gradient, and the step's ``zero_grad(set_to_none=True)`` leaves
+    exactly those without one. With a zero gradient torch's Adam takes
+    JAX's update."""
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+
+
 def make_scheduler(cfg: Config, optimizer: torch.optim.Optimizer
                    ) -> torch.optim.lr_scheduler.LambdaLR:
     """Per-epoch cosine; call ``.step()`` once at the end of each epoch."""

@@ -31,7 +31,7 @@ from typing import Dict, Mapping, Sequence
 import numpy as np
 import torch
 
-from glfusion_tpu_torch.arch_names import REG_ARCHS
+from glfusion_tpu_torch.arch_names import AVS_FLAVORS, LEGACY_KINDS, REG_ARCHS
 from glfusion_tpu_torch.config import ModelConfig
 
 Tree = Mapping[str, "Tree | np.ndarray"]
@@ -75,16 +75,20 @@ def backbone_state_dict(p: Tree, s: Tree,
     _bn(sd, "init_block.1", p["stem_bn"], s["stem_bn"])
     for st, blocks in enumerate(block_sizes, 1):
         for b in range(blocks):
-            jp, js = p[f"layer{st}_block{b}"], s[f"layer{st}_block{b}"]
-            root = f"layer{st}.{b}"
-            for j in (1, 2, 3):
-                _conv(sd, f"{root}.conv{j}", jp[f"conv{j}"])
-                _bn(sd, f"{root}.bn{j}", jp[f"bn{j}"], js[f"bn{j}"])
-            if "downsample_conv" in jp:
-                _conv(sd, f"{root}.downsample.0", jp["downsample_conv"])
-                _bn(sd, f"{root}.downsample.1", jp["downsample_bn"],
-                    js["downsample_bn"])
+            _bottleneck(sd, f"layer{st}.{b}", p[f"layer{st}_block{b}"],
+                        s[f"layer{st}_block{b}"])
     return sd
+
+
+def _bottleneck(sd: Dict, root: str, jp: Tree, js: Tree) -> None:
+    """JAX ``Bottleneck`` variables → ``models.resnet.Bottleneck`` names."""
+    for j in (1, 2, 3):
+        _conv(sd, f"{root}.conv{j}", jp[f"conv{j}"])
+        _bn(sd, f"{root}.bn{j}", jp[f"bn{j}"], js[f"bn{j}"])
+    if "downsample_conv" in jp:
+        _conv(sd, f"{root}.downsample.0", jp["downsample_conv"])
+        _bn(sd, f"{root}.downsample.1", jp["downsample_bn"],
+            js["downsample_bn"])
 
 
 def aspp_state_dict(p: Tree, s: Tree,
@@ -194,20 +198,65 @@ def load_checkpoint(path: str) -> Dict[str, torch.Tensor]:
 # ------------------------------------------------------------------ the zoo
 
 # where JAX stacks a per-view copy of the tree (``nn.vmap``) and the port
-# holds ``.{i}`` modules; CEN's streams are stacked inside its StreamBNs
+# holds ``.{i}`` modules; CEN's streams are stacked inside its StreamBNs;
+# the AVS family has named per-view backbones (model17's ``resnet_{v}``)
 _ZOO_PER_VIEW = {"unet": ("net/encoder", "net/decoder"),
                  "multiview_unet": ("net/encoder", "net/decoder"),
                  "utnet": ("net",), "res3dunet": ("net",), "cen": ()}
 # flax's automatic names of ConvBNRelu's children → the port's
 _ZOO_RENAME = {"Conv_0": "conv", "BatchNorm_0": "bn"}
+# TPAVI modules of the zoo: multiview_unet's, the AVS family's, the legacy
+_TPAVI_NAMES = ("global_attn", "tpavi_b", "non_local")
+
+
+def _legacy_per_view(kind: str) -> tuple:
+    """The legacy kind's per-view stacks: ``decouple`` shares its backbone
+    and classifier, ``model18`` its classifier."""
+    paths = ("net/fc", "net/consistent_conv", "net/complementary_conv")
+    if kind != "decouple":
+        paths += ("net/backbone", "net/backbone_stem") + tuple(
+            f"net/backbone_layer{k}" for k in range(1, 5))
+    if kind not in ("model18", "decouple"):
+        paths += ("net/classifier/head",)
+    return paths
 
 
 def _zoo_per_view(arch: str) -> tuple:
     if arch.startswith("unet:"):
         return ("net",)
+    if arch.startswith("avs_") and arch[4:] in AVS_FLAVORS:
+        return ()
+    if arch.startswith("legacy:") and arch[7:] in LEGACY_KINDS:
+        return _legacy_per_view(arch[7:])
     if arch not in _ZOO_PER_VIEW:
         raise ValueError(f"zoo_state_dict_from_jax: no mapping for {arch!r}")
     return _ZOO_PER_VIEW[arch]
+
+
+def _legacy_node(sd: Dict, key: str, name: str, p: Tree, s: Tree) -> bool:
+    """The legacy kinds' flagship modules under the reference's names
+    (True where ``name`` is one): the ``ResNetIEKD`` backbone, model20's
+    stem (``init_block``'s conv and BN) and stages, the DeepLab head."""
+    if name == "backbone":
+        blocks = [sum(k.startswith(f"layer{st}_block") for k in p)
+                  for st in range(1, 5)]
+        part = backbone_state_dict(p, s, blocks)
+    elif name == "backbone_stem":
+        part = {}
+        _conv(part, "0", p["stem_conv"], bias=True)
+        _bn(part, "1", p["stem_bn"], s["stem_bn"])
+    elif name.startswith("backbone_layer"):
+        part = {}
+        for b in range(len(p)):
+            _bottleneck(part, str(b), p[f"block{b}"], s[f"block{b}"])
+    elif name == "head":
+        part = head_state_dict(p, s, sum(
+            k.startswith("b") and k.endswith("_conv") and k != "b0_conv"
+            for k in p["aspp"]))
+    else:
+        return False
+    sd.update({f"{key}.{k}": t for k, t in part.items()})
+    return True
 
 
 def _zoo_kernel(k: np.ndarray, transposed: bool) -> np.ndarray:
@@ -229,8 +278,11 @@ def _zoo_node(sd: Dict, key: str, name: str, p: Tree, s: Tree,
             _zoo_kernel(np.asarray(p["kernel"]), transposed)))
         if "bias" in p:
             sd[f"{key}.bias"] = _t(p["bias"])
-    elif "scale" in p:  # BatchNorm (C,), or CEN's StreamBN (S, C)
-        if np.ndim(p["scale"]) == 1:
+    elif "scale" in p:  # a LayerNorm, BatchNorm (C,), CEN's StreamBN (S, C)
+        if "mean" not in s:
+            sd[f"{key}.weight"] = _t(p["scale"])
+            sd[f"{key}.bias"] = _t(p["bias"])
+        elif np.ndim(p["scale"]) == 1:
             _bn(sd, key, p, s)
         else:
             sd[f"{key}.weight"] = _t(p["scale"])
@@ -259,10 +311,14 @@ def _zoo_walk(sd: Dict, key: str, path: tuple, p: Tree, s: Tree,
             _zoo_walk(sd, f"{key}.{i}", path + (str(i),), _view(p, i),
                       _view(s, i), per_view, arch)
         return
-    name = path[-1] if path else ""
-    if name == "global_attn":  # multiview_unet's TPAVI
+    # a per-view copy's node is named by its stack
+    name = path[-2] if path and path[-1].isdigit() else (
+        path[-1] if path else "")
+    if name.startswith(_TPAVI_NAMES):
         for k, t in tpavi_state_dict(p, s).items():
             sd[f"{key}.{k}"] = t
+        return
+    if arch.startswith("legacy:") and _legacy_node(sd, key, name, p, s):
         return
     transposed = (arch == "res3dunet" and path[-2:-1] in
                   (("up2",), ("up3",), ("up4",)) and name == "conv")
@@ -279,7 +335,8 @@ def zoo_state_dict_from_jax(variables: Mapping[str, Tree], arch: str,
                             ) -> Dict[str, torch.Tensor]:
     """JAX ``build_seg_model`` variables of a zoo arch (``unet``,
     ``multiview_unet``, ``unet:<kind>``, ``utnet``, ``cen``,
-    ``res3dunet``) → the port adapter's state dict (``models/registry.py``).
+    ``res3dunet``, ``avs_<flavor>``, ``legacy:<kind>``) → the port
+    adapter's state dict (``models/registry.py``).
 
     2-D kernels HWIO → OIHW, 3-D kernels DHWIO → OIDHW, depthwise kernels
     (3, 3, 1, C) → (C, 1, 3, 3) by the same rule; a per-view stacked tree
@@ -287,7 +344,16 @@ def zoo_state_dict_from_jax(variables: Mapping[str, Tree], arch: str,
     ``mean/var`` become ``weight/bias/running_mean/running_var``, CEN's
     stacked (S, C) StreamBN leaves as they are; res3dunet's flax
     ``ConvTranspose`` kernels have their taps flipped (``_zoo_kernel``); a
-    PReLU's ``alpha`` is ``prelu.weight``; TPAVI as ``tpavi_state_dict``.
+    PReLU's ``alpha`` is ``prelu.weight``; TPAVI as ``tpavi_state_dict``;
+    a Dense (I, O) is a Linear (O, I); a LayerNorm's ``scale/bias`` are
+    ``weight/bias`` (the channel transformer's ``norm`` (V,)). The AVS
+    family's names are JAX's (model17's backbones ``resnet_{v}``). The
+    legacy kinds' per-view stacks (``net/backbone``,
+    ``net/classifier/head``, ``net/fc``, ``net/consistent_conv``,
+    ``net/complementary_conv``, ``net/backbone_stem``,
+    ``net/backbone_layer{k}``, where the kind has them per view) become
+    ``.{i}`` modules, and their ResNet-IEKD pieces and DeepLab heads take
+    the reference's names (``backbone_state_dict``, ``head_state_dict``).
     ``per_view=False``: the arch's network alone, not lifted over views.
     """
     sd: Dict[str, torch.Tensor] = {}

@@ -2,13 +2,19 @@
 the JAX references in float64 and the checks each arch runs.
 
 At ``tiny_config()`` widths (stem_width 8: U-Nets 8..128, UTNet base 4,
-ResUNet3D 2..32; CEN has fixed widths), 2 views (CEN 3) of 2 frames at 16²
-(8² for CEN, 32² for UTNet, whose attention needs a 2² key grid). Weights
-are random numpy arrays made from a seed (every BN with random statistics,
-UTNet's position tables and the PReLU slopes random, part of CEN's bn2
-scales under the exchange threshold, TPAVI's W_z BN nonzero) and go across
-with ``utils/convert.zoo_state_dict_from_jax``. JAX runs in float64
-(``jax.enable_x64``), once per arch for both checks:
+ResUNet3D 2..32, the legacy kinds' ResNet-IEKD 8..64 with ASPP dropout 0;
+CEN has fixed widths; the AVS family ``AVS_MODEL``), 2 views (``_views``:
+3 for CEN, ``avs_pred_endecoder`` and the legacy kinds) of 2 frames (3
+for the AVS family's 2-view flavours) at 16² (8² for CEN, 32² for UTNet,
+whose attention needs a 2² key grid, 34² for the AVS family).
+Weights are random numpy arrays made from a seed (every BN with random
+statistics, UTNet's position tables and the PReLU slopes random, part of
+CEN's bn2 scales under the exchange threshold, TPAVI's W_z BN nonzero) and
+go across with ``utils/convert.zoo_state_dict_from_jax``. JAX runs in
+float64 (``jax.enable_x64``), once per arch for both checks (``EVAL_ONLY``
+archs: eval alone); for the AVS family and the legacy kinds its large
+convolutions run as one product of their taps (``_conv64``) and its
+float32 accumulations in float64 (``_einsum64``):
 
 * ``check_eval``: the adapter's outputs, the port in float32, within 1e-4
   in relative norm of JAX's ``build_seg_model`` adapter.
@@ -19,7 +25,10 @@ with ``utils/convert.zoo_state_dict_from_jax``. JAX runs in float64
   (0.2) cannot share a random stream with JAX, so they are held at module
   level without dropout (``CENRefineNet(dropout=0)`` with one block a
   stage, ``ResUNet3D(drop_rate=0)``); JAX's CEN there takes its StreamBN
-  moments in float64 (``_StreamBN64``).
+  moments in float64 (``_StreamBN64``). ``avs_pred_endecoder`` is
+  trained at module level on one (main, other) pair, its ring of pairs
+  held in eval, as its adapter-level reference costs three times the
+  compile.
 """
 
 from __future__ import annotations
@@ -36,6 +45,7 @@ import torch
 
 from _torch_port_common import FAST_COMPILE, _fill
 from glfusion_tpu.config import ModelConfig as JModelConfig
+from glfusion_tpu.models import avs as javs
 from glfusion_tpu.models import cen as jcen
 from glfusion_tpu.models.registry import build_seg_model as j_build
 from glfusion_tpu.models.res3dunet import ResUNet3D as JResUNet3D
@@ -43,7 +53,9 @@ from glfusion_tpu.train import losses as jlosses
 from glfusion_tpu_torch.config import tiny_config
 from glfusion_tpu_torch.models import build_model
 from glfusion_tpu_torch.models import cen as pcen
+from glfusion_tpu_torch.models.avs import PredEndecoder, b2_stage_hw
 from glfusion_tpu_torch.models.res3dunet import ResUNet3D
+from glfusion_tpu_torch.models.tpavi import TPAVI
 from glfusion_tpu_torch.train.losses import bce_with_logits_sum
 from glfusion_tpu_torch.utils.convert import zoo_state_dict_from_jax
 
@@ -78,18 +90,57 @@ def _random_variables(init_fn, seed: int = 0):
         {k: v for k, v in shapes.items() if k in ("params", "batch_stats")})
 
 
+# the AVS family: widths (2, 4, 6, 8) (bottleneck outputs 8..32), one
+# block a stage, channel 8 (``aspp_channels``), at 34²: the decoder's
+# output is 36², so the adapter's final resize and the non-integer
+# align_corners upsamples run; the legacy kinds: tiny_config() widths, ASPP
+# dropout 0 (trained at adapter level)
+AVS_MODEL = dict(widths=(2, 4, 6, 8), block_sizes=(1, 1, 1, 1),
+                 aspp_channels=8)
+LEGACY_MODEL = dict(aspp_dropout=0.0)
+
+
 def _views(arch):
-    """CEN's views are its exchange streams: 3, for the ring; the other
-    archs' views are independent but for multiview_unet's TPAVI: 2."""
-    return ("1", "3", "4") if arch == "cen" else ("1", "3")
+    """CEN's views are its exchange streams: 3, for the ring, and so for
+    ``avs_pred_endecoder``'s (its ring neighbour is not symmetric at 3)
+    and the legacy kinds; the other archs' views are independent but for
+    multiview_unet's TPAVI: 2. The AVS family's per-view loops unroll in
+    JAX's graph, so the other three flavours take 2 views of 3 frames
+    (``_batch``): smaller references, with V ≠ B still."""
+    if arch in ("cen", "avs_pred_endecoder") or arch.startswith("legacy:"):
+        return ("1", "3", "4")
+    return ("1", "3")
+
+
+def _batch(arch):
+    """Frames a view: 3 where the AVS family takes 2 views, else 2."""
+    return 3 if arch.startswith("avs_") and len(_views(arch)) == 2 else 2
+
+
+def _hw(arch):
+    """The frames' side: 16² (the U-Nets' bottleneck 1², the legacy f4
+    4²), 8² for CEN (its H/4 2²), 32² for UTNet, whose attention needs a
+    2² key grid, 34² for the AVS family."""
+    if arch.startswith("avs_"):
+        return 34
+    return {"utnet": 32, "cen": 8}.get(arch, 16)
+
+
+def _model_kw(arch):
+    """The arch's ModelConfig fields beside tiny_config()'s."""
+    if arch.startswith("avs_"):
+        return AVS_MODEL
+    return LEGACY_MODEL if arch.startswith("legacy:") else {}
 
 
 def _jcfg(arch):
     return JModelConfig(**{f.name: getattr(TINY.model, f.name)
                            for f in dataclasses.fields(JModelConfig)
                            if hasattr(TINY.model, f.name)
-                           and f.name not in ("arch", "dtype", "views")},
-                        arch=arch, dtype="float64", views=_views(arch))
+                           and f.name not in ("arch", "dtype", "views")
+                           and f.name not in _model_kw(arch)},
+                        arch=arch, dtype="float64", views=_views(arch),
+                        **_model_kw(arch))
 
 
 class _StreamBN64(jcen.StreamBN):
@@ -143,6 +194,30 @@ class _JRes3DLevel(fnn.Module):
                           name="net")(x, train)
 
 
+_PRED_KW = dict(channel=AVS_MODEL["aspp_channels"], num_classes=5,
+                widths=AVS_MODEL["widths"], blocks=AVS_MODEL["block_sizes"])
+
+
+class _JPredLevel(fnn.Module):
+    """PredEndecoder on one (main, other) pair: views 0 and 1."""
+
+    @fnn.compact
+    def __call__(self, x, train):
+        return javs.PredEndecoder(**_PRED_KW, return_features=True,
+                                  dtype="float64", name="net")(
+                                      x[0], x[1], train)
+
+
+class _PredLevel(torch.nn.Module):
+    def __init__(self):
+        super().__init__()
+        self.net = PredEndecoder(**_PRED_KW)
+
+    def forward(self, x):  # the contract's layouts, one view
+        mask, feat = self.net(x[0], x[1])
+        return {"mask": mask[None], "f4_global": feat[None]}
+
+
 class _CENLevel(torch.nn.Module):
     def __init__(self):
         super().__init__()
@@ -170,11 +245,74 @@ class _Res3DLevel(torch.nn.Module):
                 "f4_global": feat.movedim(1, -1)}
 
 
+_EINSUM = jnp.einsum
+
+
+def _einsum64(subscripts, *operands, preferred_element_type=None, **kw):
+    """``jnp.einsum`` whose float32 accumulation (JAX's
+    ``preferred_element_type=float32``: the ASPP's taps, TPAVI's products)
+    stays float64 on float64 operands, so a float64 run is float64
+    throughout; with it the AVS family and the legacy kinds match the
+    float64 port at ``TRAIN_TOL[None]`` (measured without: outputs 9.4e-7,
+    gradients 7.4e-5 of max|g| in ``legacy:model20``)."""
+    if preferred_element_type == jnp.float32 and all(
+            getattr(o, "dtype", None) == jnp.float64 for o in operands):
+        preferred_element_type = None
+    return _EINSUM(subscripts, *operands,
+                   preferred_element_type=preferred_element_type, **kw)
+
+
+_CONV = jax.lax.conv_general_dilated
+_NHWC = ("NHWC", "HWIO", "NHWC")
+_CONV64_MACS = 1 << 20
+
+
+def _conv64(lhs, rhs, window_strides, padding, lhs_dilation=None,
+            rhs_dilation=None, dimension_numbers=None,
+            feature_group_count=1, batch_group_count=1, **kw):
+    """``lax.conv_general_dilated`` of a large float64 2-D NHWC/HWIO
+    convolution as one product of its (strided, dilated) taps: XLA:CPU has
+    no library convolution in float64 and runs its own loop, about 100×
+    slower than its float64 matrix product at the tests' compile level (the
+    AVS output head's 128 → 32 conv at 36² took 20 s of a 30 s reference).
+    Equal in real arithmetic. A convolution of under ``_CONV64_MACS``
+    multiply-adds, or of another kind, goes to XLA's own (the product form
+    compiles slower)."""
+    dn = jax.lax.conv_dimension_numbers(lhs.shape, rhs.shape,
+                                        dimension_numbers)
+    macs = np.prod(lhs.shape[:-1]) * np.prod(rhs.shape) // np.prod(
+        window_strides)
+    if (lhs.dtype != jnp.float64 or lhs.ndim != 4 or macs < _CONV64_MACS
+            or feature_group_count != 1
+            or batch_group_count != 1 or tuple(lhs_dilation or (1, 1))
+            != (1, 1) or dn != jax.lax.conv_dimension_numbers(
+                lhs.shape, rhs.shape, _NHWC)):
+        return _CONV(lhs, rhs, window_strides, padding, lhs_dilation,
+                     rhs_dilation, dimension_numbers, feature_group_count,
+                     batch_group_count, **kw)
+    kh, kw_, cin, cout = rhs.shape
+    (sh, sw), (dh, dw) = window_strides, tuple(rhs_dilation or (1, 1))
+    if isinstance(padding, str):
+        padding = jax.lax.padtype_to_pads(
+            lhs.shape[1:3], ((kh - 1) * dh + 1, (kw_ - 1) * dw + 1),
+            window_strides, padding)
+    x = jnp.pad(lhs, ((0, 0), tuple(padding[0]), tuple(padding[1]), (0, 0)))
+    ho = (x.shape[1] - (kh - 1) * dh - 1) // sh + 1
+    wo = (x.shape[2] - (kw_ - 1) * dw - 1) // sw + 1
+    taps = [x[:, i * dh:i * dh + (ho - 1) * sh + 1:sh,
+              j * dw:j * dw + (wo - 1) * sw + 1:sw]
+            for i in range(kh) for j in range(kw_)]
+    return jnp.concatenate(taps, -1) @ rhs.reshape(kh * kw_ * cin, cout)
+
+
 def _j_contract(arch, out):
     """A module-level JAX output as the contract's dict."""
     if arch == "cen":
         logits, ens, alpha = out
         return {"mask": logits, "mask_ensemble": ens, "alpha": alpha}
+    if arch == "avs_pred_endecoder":
+        mask, feat = out
+        return {"mask": mask[None], "f4_global": feat[None]}
     (o1, o2, o3, o4), feat = out
     return {"mask": o4, "mask_aux": (o1, o2, o3), "f4_global": feat}
 
@@ -201,7 +339,16 @@ def _outputs(out):
     return flat
 
 
-MODULE_LEVEL = ("cen", "res3dunet")  # trained without their dropout
+# trained at module level: CEN and res3dunet without their dropout;
+# PredEndecoder on one (main, other) pair, a third of the adapter's
+# reference (its ring of V pairs is held in eval)
+MODULE_LEVEL = ("cen", "res3dunet", "avs_pred_endecoder")
+_J_LEVEL = {"cen": _JCENLevel, "res3dunet": _JRes3DLevel,
+            "avs_pred_endecoder": _JPredLevel}
+_LEVEL = {"cen": _CENLevel, "res3dunet": _Res3DLevel,
+          "avs_pred_endecoder": _PredLevel}
+# held in eval alone: JAX's reference computes no train step for them
+EVAL_ONLY = ("legacy:none", "legacy:tpavi", "legacy:model18")
 # train parity, both in float64: (outputs in relative norm, the loss
 # relative, each gradient of max|g|); multiview_unet's JAX TPAVI returns
 # its products in float32 (preferred_element_type) in a float64 run
@@ -217,21 +364,23 @@ def jax_case(arch, level: str):
     compile: at ``level='adapter'`` the adapter's eval outputs and (but for
     ``MODULE_LEVEL``) the train-mode outputs, the supervised loss and its
     gradients; at ``level='module'`` the latter of the module without
-    dropout. 16² frames (the U-Nets' bottleneck 1²), 8² for CEN (its H/4
-    2²), 32² for UTNet, whose attention needs a 2² key grid. Returns
-    (variables, x, masks, eval outputs, train outputs, loss, gradients),
-    numpy."""
+    dropout. Frames of ``_hw(arch)``². Returns (variables, x, masks, eval
+    outputs, train outputs, loss, gradients), numpy."""
     rs = np.random.RandomState(1)
     module = level == "module"
-    hw = {"utnet": 32, "cen": 8}.get(arch, 16)
-    shape = (len(_views(arch)), 8 if module and arch == "res3dunet" else 2,
+    hw = _hw(arch)
+    shape = (len(_views(arch)),
+             8 if module and arch == "res3dunet" else _batch(arch),
              hw, hw, 1)
     x = rs.rand(*shape)
-    out_hw = (hw // 4,) * 2 if module and arch == "cen" else (hw, hw)
-    masks = (rs.rand(*shape[:2], *out_hw, 5) > 0.7).astype(np.float64)
-    jm = ({"cen": _JCENLevel, "res3dunet": _JRes3DLevel}[arch]() if module
-          else j_build(_jcfg(arch))[0])
-    train = module or arch not in MODULE_LEVEL
+    out_hw, views = (hw, hw), shape[0]
+    if module and arch == "cen":
+        out_hw = (hw // 4,) * 2
+    if module and arch == "avs_pred_endecoder":  # the decoder's own grid
+        out_hw, views = (4 * b2_stage_hw(hw)[0],) * 2, 1
+    masks = (rs.rand(views, shape[1], *out_hw, 5) > 0.7).astype(np.float64)
+    jm = _J_LEVEL[arch]() if module else j_build(_jcfg(arch))[0]
+    train = module or arch not in MODULE_LEVEL + EVAL_ONLY
     with jax.enable_x64(True):
         v = _random_variables(lambda: jm.init(
             jax.random.PRNGKey(0), jnp.zeros(shape), False))
@@ -253,7 +402,12 @@ def jax_case(arch, level: str):
         # CEN's float64 convs run 6× faster under XLA's full optimization,
         # which outweighs its longer compile; the others' compile dominates
         opts = None if arch == "cen" else FAST_COMPILE
-        with mock.patch.object(jcen, "StreamBN", _StreamBN64):
+        second_half = arch.startswith(("avs_", "legacy:"))
+        with mock.patch.object(jcen, "StreamBN", _StreamBN64), \
+                mock.patch.object(jnp, "einsum",
+                                  _einsum64 if second_half else _EINSUM), \
+                mock.patch.object(jax.lax, "conv_general_dilated",
+                                  _conv64 if second_half else _CONV):
             ev, ((loss, tr), g) = jax.device_get(
                 jax.jit(run, compiler_options=opts)(v))
     return v, x, masks, ev, tr, loss, g
@@ -261,7 +415,7 @@ def jax_case(arch, level: str):
 
 def port_zoo(arch, variables, dtype=torch.float32, hw=16):
     m, cps = build_model(dataclasses.replace(
-        TINY.model, arch=arch, views=_views(arch)), hw=hw)
+        TINY.model, arch=arch, views=_views(arch), **_model_kw(arch)), hw=hw)
     assert not cps
     m.load_state_dict(zoo_state_dict_from_jax(variables, arch))
     return m.to(dtype)
@@ -272,9 +426,10 @@ def check_eval(arch):
     v, x, _, ref, *_ = jax_case(arch, "adapter")
     ref = _outputs(ref)
     m = port_zoo(arch, v, hw=x.shape[2]).eval()
-    if arch == "multiview_unet":  # at init W_z's BN would hide TPAVI
-        bn = m.net.global_attn.W_z[1]
-        assert (bn.weight != 0).all() and (bn.bias != 0).all()
+    for attn in m.modules():  # at init W_z's BN would hide TPAVI
+        if isinstance(attn, TPAVI):
+            bn = attn.W_z[1]
+            assert (bn.weight != 0).all() and (bn.bias != 0).all()
     with torch.no_grad():
         out = _outputs(m(torch.from_numpy(x).float()))
     want = {"mask", "mask_bb", "f4_global", "f4_local"} | (
@@ -297,7 +452,7 @@ def check_train(arch):
         arch, "module" if module else "adapter")
     jl = float(jl)
     if module:
-        m = {"cen": _CENLevel, "res3dunet": _Res3DLevel}[arch]()
+        m = _LEVEL[arch]()
         m.load_state_dict(zoo_state_dict_from_jax(v, arch, per_view=False))
         m = m.double()
     else:
@@ -318,7 +473,9 @@ def check_train(arch):
     grads = dict(m.named_parameters())
     assert set(grads) <= set(want)
     for name, p in grads.items():
-        g, ref = p.grad.numpy(), want[name].numpy()
+        # a parameter outside the loss: no gradient here, a zero one in JAX
+        g = (torch.zeros_like(p) if p.grad is None else p.grad).numpy()
+        ref = want[name].numpy()
         scale = np.abs(ref).max()
         owner = name.rsplit(".", 1)[0] + ".weight"
         if name.endswith(".bias") and owner in want:

@@ -300,6 +300,35 @@ def test_adam_and_cosine_match_optax():
                                    rtol=1e-5, atol=1e-7, err_msg=str(t))
 
 
+def test_zero_fill_grads_updates_unused_leaves_as_optax():
+    """A parameter the loss does not reach gets optax's zero gradient: the
+    L2 term, the moments and the step count move it (about lr·sign(p)),
+    as JAX's chain does, while the used one takes its gradient's update.
+    Without the helper torch's Adam skips it."""
+    from glfusion_tpu_torch.train.train_state import zero_fill_grads
+
+    cfg, jcfg = pconfig.Config(), jconfig.Config()
+    used = torch.nn.Parameter(torch.ones(3))
+    unused = torch.nn.Parameter(torch.tensor([1.0, -0.5, 2.0]))
+    opt = make_optimizer(cfg, [used, unused])
+    opt.zero_grad(set_to_none=True)
+    (used * torch.tensor([1.0, 2.0, -3.0])).sum().backward()
+    assert unused.grad is None
+    zero_fill_grads(opt)
+    opt.step()
+    tx = j_make_optimizer(jcfg, steps_per_epoch=1)
+    leaves = {"used": jnp.ones(3), "unused": jnp.asarray([1.0, -0.5, 2.0])}
+    grads = {"used": jnp.asarray([1.0, 2.0, -3.0]),
+             "unused": jnp.zeros(3)}
+    upd, _ = tx.update(grads, tx.init(leaves), leaves)
+    want = optax.apply_updates(leaves, upd)
+    for name, p in (("used", used), ("unused", unused)):
+        np.testing.assert_allclose(p.detach().numpy(),
+                                   np.asarray(want[name]), rtol=1e-6,
+                                   err_msg=name)
+    assert (unused.detach().numpy() != [1.0, -0.5, 2.0]).all()
+
+
 # ------------------------------------------------------- one train step
 
 STEP_VIEWS = ("1", "3", "4")

@@ -4,7 +4,8 @@ the CPU: the U-Net family's eval and train parity
 wiring: the registry over every ``SEG_ARCHS`` name, ``--model``'s choices,
 the trainer's five refusals in JAX's words, deep supervision in the plain
 and the ``grad_accum`` step, one tiny ``Trainer`` epoch of ``res3dunet``
-and a tiny CLI run. The other archs' parity and the pins are in
+and tiny CLI runs (``unet:att``, and an AVS flavour and a legacy
+kind). The other archs' parity and the pins are in
 test_torch_port_zoo_models.py (two files, so the suite's workers share
 the JAX references' cost)."""
 
@@ -45,9 +46,8 @@ def test_zoo_train_grads_match_jax(arch):
 
 
 def test_registry_covers_seg_archs():
-    """Every SEG_ARCHS name builds, or for the AVS family and the legacy
-    kinds raises the error naming ROADMAP Queue 1; --model's choices are
-    JAX's SEG_ARCHS."""
+    """Every SEG_ARCHS name builds (on the meta device); --model's choices
+    are JAX's SEG_ARCHS."""
     assert arch_names.SEG_ARCHS == jarch.SEG_ARCHS
     for name in ("AVS_FLAVORS", "LEGACY_KINDS", "UNET_KINDS"):
         assert getattr(arch_names, name) == getattr(jarch, name)
@@ -60,15 +60,13 @@ def test_registry_covers_seg_archs():
     built = []
     for arch in jarch.SEG_ARCHS:
         cfg = dataclasses.replace(TINY.model, arch=arch)
-        if arch.startswith(("avs_", "legacy:")):
-            with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-                build_model(cfg, hw=32)
-        else:
-            with torch.device("meta"):
-                m, cps = build_model(cfg, hw=32)
-            built.append(arch)
-            assert not cps and isinstance(m, torch.nn.Module)
-    assert set(built) == {"glfusion"} | set(ALL_ARCHS)
+        with torch.device("meta"):
+            m, cps = build_model(cfg, hw=32)
+        built.append(arch)
+        assert not cps and isinstance(m, torch.nn.Module)
+    assert set(built) == {"glfusion"} | set(ALL_ARCHS) | {
+        f"avs_{f}" for f in jarch.AVS_FLAVORS} | {
+        f"legacy:{k}" for k in jarch.LEGACY_KINDS}
     with pytest.raises(ValueError, match="unknown arch"):
         build_model(dataclasses.replace(TINY.model, arch="nope"))
 
@@ -189,3 +187,17 @@ def test_cli_trains_a_zoo_arch(tmp_path, corpus_root):
     assert cli.main(["--mode", "train"] + args) == 0
     assert cli.main(["--mode", "val"] + args) == 0
     assert ModelConfig().arch == "glfusion"
+
+
+@pytest.mark.parametrize("arch", ["avs_transfusion",
+                                  "legacy:channel_transformer"])
+def test_cli_trains_avs_and_legacy(tmp_path, corpus_root, arch):
+    """An AVS flavour and a legacy kind through ``--model``, tiny on the
+    CPU: train (its channel transformer sized by the 32² crop), then
+    val."""
+    args = ["--tiny", "--platform", "cpu", "--model", arch,
+            "--data-root", str(corpus_root), "--epochs", "1",
+            "--save-dir", str(tmp_path / "ckpt"),
+            "--log-dir", str(tmp_path / "log")]
+    assert cli.main(["--mode", "train"] + args) == 0
+    assert cli.main(["--mode", "val"] + args) == 0
