@@ -11,7 +11,10 @@ nonzero:
   env     torch and CUDA versions, the card's name and power limit; TF32 is
           switched off for matmuls and cuDNN, for every comparison below.
   build   nvcc builds the port's CUDA kernels (``tpavi_fused.cu``,
-          ``stem_fused.cu``) from the checkout's sources, in parallel.
+          ``stem_fused.cu``) and g++ the native NIfTI decoder
+          (``nifti_reader.cpp``) from the checkout's sources, in parallel;
+          with g++ and zlib's header on the machine the decoder must
+          build and load.
   kernel  the TPAVI kernel against its plain PyTorch version (relative max
           and norm error) at small,
           ragged, N <= C', C' > 1024 and serving shapes, float32 and
@@ -61,7 +64,10 @@ nonzero:
           validation Dice; one step through the kernels held against the
           same step through the plain versions, on a state and batch fixed
           before the epoch (``step_verdict``); the saved checkpoint loads
-          back.
+          back. Its ``native`` line: whether the NIfTI decoder built (the
+          g++ version), every corpus file read by one batched native read
+          and by the pure reader, equal bit for bit, both timed, and when
+          ``Trainer``'s warm-up thread ended against the first step.
   temporal  the float32 flagship with ``temporal``: one epoch, K1 at
           (1, 94 080, 1024) in the cycle pass, s/step, peak memory, the
           step check with reassociated plain paths.
@@ -99,8 +105,14 @@ nonzero:
           widths, float32: each trains 2 steps through ``Trainer``, then an
           eval forward is timed and counted (``utils/profiling.py``) and
           held against its float64 twin on the card; res3dunet's loss with
-          and without its deep-supervision maps; K1's and the stems'
-          launch counts unmoved by the phase.
+          and without its deep-supervision maps; the six library
+          segmenters (``models/segmentation.py``) at full width, batch 8
+          of 112² frames (a reference and three supports for the
+          multi-frame two), each eval forward timed, counted, its peak
+          memory read and held against its float64 twin, one line each,
+          and one train forward and backward of the multi-frame model
+          (finite gradients, four BatchNorm updates of its backbone);
+          K1's and the stems' launch counts unmoved by the phase.
   regression  the mPAP regressors (``--reg-model``: Resnet50PAH,
           R(2+1)D-18, TimeSformer, Resnet50PFS) at full width, float32, 3
           views of 48 frames at 112², batch 8: each trains one epoch of 2
@@ -129,6 +141,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -256,6 +269,13 @@ ZOO_OUTSIDE_LOSS = ("net.alpha", "layer3_2_", "layer4_2_")
 # float32, on a synthetic corpus of REG_PATIENTS patients (16 train: 2 steps
 # of 8 an epoch, 3 val), 3 views, crop 112², 48 frames; each eval forward
 # held against its float64 twin on the card within REG_TOL
+# the library segmenters (models/segmentation.py): the ctors, at their
+# defaults (ResNet-50, ASPP 256), on batch 8 of 112² frames
+SEGMENTERS = ("deeplabv3_resnet50", "deeplabv3_resnet50_iekd",
+              "deeplabv3_resnet50_iekd_project",
+              "deeplabv3_resnet50_iekd_maxmod", "deeplabv3_resnet50_mltfrm",
+              "deeplabv3_resnet50_mltfrm_spatatt")
+SEG_BATCH, SEG_HW, SEG_SUPPORTS = 8, 112, 3
 REG_ARCHS = ("resnet50pah", "r2plus1d", "timesformer", "resnet50pfs")
 REG_PATIENTS, REG_STEPS, REG_TOL = 24, 2, 1e-4
 # infer against serve: a voxel's mask may differ only where the clip's
@@ -1632,18 +1652,23 @@ def train_phase(torch) -> dict:
     step_s = []
     inner = trainer.train_step
 
+    first_step = []
+
     def timed_step(batch, gen):
         torch.cuda.synchronize()
         t = time.perf_counter()
         out = inner(batch, gen)
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t)
+        first_step.append(time.perf_counter())
         return out
 
     trainer.train_step = timed_step
     # the step check's state and batch, fixed before the epoch that trains
     # on the card (not deterministic there)
     check_batch, state0 = fixed_check_sample(torch, trainer)
+    native = decode_check(trainer.data_paths["root"])
+    warm = watch_warming(trainer.train_loader)
 
     # ---- the main path, counted: one epoch, then the validation
     torch.cuda.reset_peak_memory_stats()
@@ -1656,6 +1681,14 @@ def train_phase(torch) -> dict:
     train_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     steps = metrics["steps"]
+    check("thread" in warm, "Trainer.train started no warm-up")
+    warm["thread"].join(timeout=60)
+    check("done" in warm, "the warm-up thread did not finish")
+    native.update(warm_keys=warm["keys"],
+                  warm_done_s=warm["done"] - t0,
+                  first_step_done_s=first_step[0] - t0,
+                  warm_done_before_first_step=warm["done"] < first_step[0])
+    emit("native", **native)
     train_counts = {k.__name__: k.launches for k in kernels}
     train_counts["fused_dot_nonlocal"] = fused_dot_nonlocal.launches
     check(steps == TRAIN_PATIENTS // 2 * TRAIN_REPEAT // cfg.train.batch_size,
@@ -1729,6 +1762,74 @@ def train_phase(torch) -> dict:
     emit("train", **rec)
     return {"train": train_counts, "validation": val_counts, "steps": steps,
             "data_paths": trainer.data_paths}
+
+
+def decoder_toolchain() -> dict:
+    """What the native decoder's build needs: ``g++`` and zlib's header."""
+    from glfusion_tpu_torch import native
+
+    return {"gxx": native.compiler_version() or None,
+            "zlib_h": Path("/usr/include/zlib.h").exists()}
+
+
+def decode_check(root) -> dict:
+    """The native NIfTI decoder on every file of the corpus under ``root``:
+    one batched native read and the pure reader, file by file, give the
+    same types and bytes; both timed. Where ``g++`` and zlib's header are
+    there the decoder must have built; where not, the record says so and
+    ``read_nifti`` (then the pure reader) is checked instead."""
+    import numpy as np
+
+    from glfusion_tpu_torch import native
+    from glfusion_tpu_torch.data.nifti import read_nifti, read_nifti_py
+
+    files = sorted(str(p) for p in Path(root).rglob("*.nii*"))
+    tools = decoder_toolchain()
+    built = native.native_available()
+    check(built or not (tools["gxx"] and tools["zlib_h"]),
+          f"the decoder did not build: {native.build_error()}")
+    t0 = time.perf_counter()
+    got = (native.read_nifti_batch_native(files) if built
+           else [read_nifti(f) for f in files])
+    read_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = [read_nifti_py(f) for f in files]
+    pure_s = time.perf_counter() - t0
+    for f, g, w in zip(files, got, want):
+        check(g.dtype == w.dtype and g.shape == w.shape and bool(
+            (np.ascontiguousarray(g).view(np.uint8)
+             == np.ascontiguousarray(w).view(np.uint8)).all()),
+              f"decoder: {f} differs from the pure reader")
+    return dict(built=built, **tools,
+                library=native.library_path().name if built else None,
+                why_not=None if built else native.build_error(),
+                files=len(files), bytes=sum(w.nbytes for w in want),
+                equal_bitwise=True,
+                batched_native_s=read_s if built else None,
+                pure_s=pure_s)
+
+
+def watch_warming(loader) -> dict:
+    """Wraps ``loader.warm_async``: the record gets the thread, its keys
+    and the host clock when it ended."""
+    rec = {}
+    start = loader.warm_async
+
+    def warm_async(epoch=0, chunk=8):
+        t = start(epoch, chunk)
+        rec["keys"] = len(loader.epoch_keys(epoch))
+
+        def watch():
+            if t is not None:
+                t.join()
+            rec["done"] = time.perf_counter()
+
+        rec["thread"] = threading.Thread(target=watch, daemon=True)
+        rec["thread"].start()
+        return t
+
+    loader.warm_async = warm_async
+    return rec
 
 
 def aspp_phase(torch) -> list:
@@ -2345,11 +2446,105 @@ def zoo_phase(torch, data_paths) -> dict:
         del trainer, model, twin, out, out64, images, masks, batch, params
         del outside
         _free(torch)
+    segmenters = segmenters_check(torch)
     after = _counts(torch)
     check(after == before, f"zoo: kernel launches moved {before} → {after}")
     emit("zoo", dtype="float32", steps=VARIANT_STEPS, archs=records,
-         launches_before=before, launches_after=after)
+         segmenters=sorted(segmenters), launches_before=before,
+         launches_after=after)
     return records
+
+
+def segmenters_check(torch) -> dict:
+    """The library segmenters (``models/segmentation.py``, no ``--model``
+    name, as in JAX) at their ctors' full width, float32: an eval forward
+    of ``SEG_BATCH`` 112² frames (3 channels for ``deeplabv3_resnet50``;
+    the multi-frame models a reference and ``SEG_SUPPORTS`` supports),
+    timed, counted and held against its float64 twin within ``ZOO_TOL``
+    in relative norm for every output, with its peak memory; one line a
+    ctor. ``deeplabv3_resnet50_mltfrm`` also trains one forward and
+    backward: every gradient finite, the shared backbone's BatchNorms
+    counting one update a frame (1 + ``SEG_SUPPORTS``), the head's one."""
+    from glfusion_tpu_torch.models import segmentation as seg
+    from glfusion_tpu_torch.train.losses import bce_with_logits_sum
+    from glfusion_tpu_torch.utils.profiling import flops_of, time_fn
+
+    records = {}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for name in SEGMENTERS:
+        torch.manual_seed(0)
+        model = getattr(seg, name)().cuda().eval()
+        multi = isinstance(model, seg.MultiFrameSegmenter)
+        chans = 3 if name == "deeplabv3_resnet50" else 1
+        x = torch.rand(SEG_BATCH, SEG_HW, SEG_HW, chans, device="cuda",
+                       generator=gen)
+        args = (x, [torch.rand(x.shape, device="cuda", generator=gen)
+                    for _ in range(SEG_SUPPORTS)]) if multi else (x,)
+        _free(torch)
+        torch.cuda.reset_peak_memory_stats()
+        with torch.inference_mode():
+            out = model(*args)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            ms = time_fn(model, *args, iters=3) * 1e3
+            flop = flops_of(model, *args)
+            twin = copy.deepcopy(model).double()
+            out64 = twin(*[[t.double() for t in a] if isinstance(a, list)
+                           else a.double() for a in args])
+        errs = {}
+        for k, t in out.items():
+            check(bool(torch.isfinite(t).all()), f"{name}: {k}")
+            check(t.shape == out64[k].shape, f"{name}: {k} {t.shape}")
+            errs[k] = rel_norm(t, out64[k])
+            check(errs[k] <= ZOO_TOL, f"{name}: eval {k} against float64 "
+                  f"relative norm {errs[k]} > {ZOO_TOL}")
+        rec = dict(eval_ms=ms, eval_flop=flop, max_memory_allocated=peak,
+                   frames=list(x.shape), supports=SEG_SUPPORTS if multi
+                   else 0, outputs={k: list(t.shape) for k, t in out.items()},
+                   params=sum(p.numel() for p in model.parameters()),
+                   rel_err_vs_float64=errs)
+        del twin, out, out64
+        if name == "deeplabv3_resnet50_mltfrm":
+            rec["train"] = _segmenter_train(torch, model, args, gen,
+                                            bce_with_logits_sum)
+        emit("zoo_segmenter", name=name, dtype="float32", **rec)
+        records[name] = rec
+        del model, args, x
+        _free(torch)
+    return records
+
+
+def _segmenter_train(torch, model, args, gen, bce) -> dict:
+    """One train-mode forward and backward of a multi-frame segmenter."""
+    bns = {k: m for k, m in model.named_modules()
+           if isinstance(m, torch.nn.BatchNorm2d)}
+    before = {k: int(m.num_batches_tracked) for k, m in bns.items()}
+    model.train()
+    _free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = model(*args)["out"]
+    masks = (torch.rand(out.shape, device="cuda", generator=gen)
+             > 0.7).float()
+    loss = bce(out, masks)
+    loss.backward()
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    grads = [(k, p.grad) for k, p in model.named_parameters()]
+    check(all(g is not None and bool(torch.isfinite(g).all())
+              for _, g in grads), "mltfrm: a gradient is missing or not "
+          "finite")
+    for k, m in bns.items():
+        want = 1 + SEG_SUPPORTS if k.startswith("backbone.") else 1
+        moved = int(m.num_batches_tracked) - before[k]
+        check(moved == want, f"mltfrm: {k} counted {moved} updates, not "
+              f"{want}")
+    model.zero_grad(set_to_none=True)
+    model.eval()
+    return dict(loss=loss.item(), fwd_bwd_s=step_s,
+                max_memory_allocated=torch.cuda.max_memory_allocated(),
+                grads=len(grads), backbone_bn_updates=1 + SEG_SUPPORTS)
 
 
 def regression_phase(torch) -> dict:
@@ -2894,19 +3089,32 @@ def main() -> None:
 
     from concurrent.futures import ThreadPoolExecutor
 
+    from glfusion_tpu_torch import native
     from glfusion_tpu_torch.ops import _build
 
     sources = ("tpavi_fused", "stem_fused")
     t0 = time.perf_counter()
     todo = [n for n in sources if not _build.library_path(n).exists()]
-    with ThreadPoolExecutor(len(sources)) as ex:  # one nvcc per source
+    tools = decoder_toolchain()
+    # one nvcc per source and g++ for the NIfTI decoder, all at once; with
+    # g++ and zlib there, a failed decoder build fails the run
+    cxx = (tools["gxx"] and tools["zlib_h"]
+           and not native.library_path().exists())
+    with ThreadPoolExecutor(len(sources) + 1) as ex:
+        decoder = ex.submit(native.build) if cxx else None
         list(ex.map(_build.build, todo))
+        if decoder is not None:
+            decoder.result()
     for name in sources:
         _build.load(name)
+    check(native.native_available() or not (tools["gxx"] and tools["zlib_h"]),
+          f"the NIfTI decoder does not load: {native.build_error()}")
     ptxas = {n: [ln.strip() for ln in _build.build_log(n).splitlines()
                  if "entry function" in ln or "registers" in ln
                  or "spill" in ln] for n in sources}
     emit("build", seconds=time.perf_counter() - t0, compiled=todo,
+         decoder=dict(built=native.native_available(), compiled=bool(cxx),
+                      why_not=native.build_error(), **tools),
          ptxas=ptxas)
 
     seconds = {}

@@ -3,8 +3,8 @@
 The port of ``glfusion_tpu/cli.py`` for ``--mode train|val|visual|infer|
 serve|export`` (reference ``main.py --mode``), with the JAX CLI's flag
 names and guards: ``--model`` (JAX's ``SEG_ARCHS``: the flagship and the
-zoo of ``models/registry.py``; the AVS family and the legacy kinds raise,
-ROADMAP Queue 1), ``--variant`` (all eleven of JAX's values: the
+whole zoo of ``models/registry.py``, the AVS family and the legacy kinds
+included), ``--variant`` (all eleven of JAX's values: the
 flagship, its eight ablations, ``cps`` and ``temporal``),
 ``--checkify``, ``--debug-nans``, ``--http-port`` (an HTTP endpoint,
 ``http_serve.py``) and ``--from-export`` (serving a ``--mode export``
@@ -74,8 +74,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--model", default="glfusion", choices=list(SEG_ARCHS),
                    help="trainable architecture (models/registry.py): the "
                         "flagship and the zoo (unet, multiview_unet, "
-                        "unet:<kind>, utnet, cen, res3dunet); the AVS family "
-                        "and the legacy kinds are not ported yet")
+                        "unet:<kind>, utnet, cen, res3dunet, avs_<flavor>, "
+                        "legacy:<kind>)")
     p.add_argument("--reg-model", default="resnet50pah",
                    choices=list(REG_ARCHS),
                    help="regression architecture for --mode reg-*")

@@ -3,7 +3,7 @@ manifests, the synthetic corpus, the host loaders (numpy) and the
 device-side batch preprocess."""
 
 from glfusion_tpu_torch.data.nifti import (  # noqa: F401
-    read_nifti_py, write_nifti)
+    read_nifti, read_nifti_py, write_nifti)
 from glfusion_tpu_torch.data.infos import (  # noqa: F401
     PatientIndex, load_infos)
 from glfusion_tpu_torch.data.xlsx import (  # noqa: F401

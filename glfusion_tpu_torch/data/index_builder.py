@@ -136,7 +136,7 @@ def read_manifest(path: str | Path) -> List[ManifestRow]:
 
 def _check_volume(row: ManifestRow) -> None:
     """Read the NIfTI volumes and validate the per-kind array contract."""
-    from glfusion_tpu_torch.data.nifti import read_nifti_py as read_nifti
+    from glfusion_tpu_torch.data.nifti import read_nifti
 
     img = np.asarray(read_nifti(row.image))
     lab = np.asarray(read_nifti(row.label)) if row.label else None

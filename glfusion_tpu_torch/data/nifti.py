@@ -3,8 +3,10 @@
 A copy of the pure-Python reader and writer of ``glfusion_tpu/data/nifti.py``
 (the port imports nothing of ``glfusion_tpu``). Echo videos are (H, W, T) or
 (1, H, W, T) volumes in the NIfTI-1 single-file format (.nii / .nii.gz):
-348-byte header, Fortran-ordered voxels at ``vox_offset``. The native C++
-decoder of the JAX package is ROADMAP M15.
+348-byte header, Fortran-ordered voxels at ``vox_offset``. ``read_nifti``
+uses the native C++ decoder (``glfusion_tpu_torch/native``) when it is
+built and the pure reader otherwise, as JAX's does; both give the same
+bytes and types.
 """
 
 from __future__ import annotations
@@ -14,6 +16,8 @@ import struct
 from pathlib import Path
 
 import numpy as np
+
+from glfusion_tpu_torch.native import read_nifti_native
 
 _DTYPES = {
     2: np.uint8,
@@ -43,6 +47,19 @@ def _read_bytes(path: str | Path) -> bytes:
             return f.read()
     with open(path, "rb") as f:
         return f.read()
+
+
+def read_nifti(path: str | Path) -> np.ndarray:
+    """Read a NIfTI-1 volume in its natural (x, y, ...) shape: the native
+    decoder when it is available (gzip inflate and voxel decode in C++),
+    else, or for a file it leaves to the pure reader, ``read_nifti_py``
+    (whose error a file that neither can read raises)."""
+    try:
+        return read_nifti_native(path)
+    except (OSError, RuntimeError, ValueError):
+        # no decoder, or a file it leaves to the pure reader, which reads
+        # it or raises its own error
+        return read_nifti_py(path)
 
 
 def read_nifti_py(path: str | Path) -> np.ndarray:

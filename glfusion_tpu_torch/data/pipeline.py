@@ -12,8 +12,12 @@ The port of ``glfusion_tpu/data/pipeline.py``. Split of work:
            regression clips' crop and /255 (``preprocess_regression_batch``,
            for ``RegressionClipLoader``'s batches).
 
-The JAX package's native C++ decoder and its background warm-up of the
-frame cache are ROADMAP M15b; the port decodes with the pure-Python reader.
+NIfTI files are read by ``data.nifti.read_nifti``: the native C++ decoder
+when it is built, the pure-Python reader otherwise. ``SegFrameLoader``
+decodes each batch's missing files in one batched native read
+(``_prefill``), and its ``warm_async`` thread decodes the epoch's files
+ahead of the train loop (``Trainer.train`` starts and stops it, as JAX's
+does); warming changes when a file is decoded, never what a batch holds.
 """
 
 from __future__ import annotations
@@ -27,7 +31,8 @@ import torch
 
 from glfusion_tpu_torch.config import ALL_VIEWS, Config
 from glfusion_tpu_torch.data.infos import PatientIndex
-from glfusion_tpu_torch.data.nifti import read_nifti_py as read_nifti
+from glfusion_tpu_torch.data.nifti import read_nifti
+from glfusion_tpu_torch.native import read_nifti_batch_native
 from glfusion_tpu_torch.ops.crops import center_crop, random_offsets
 from glfusion_tpu_torch.ops.masks import mask_to_allclass
 from glfusion_tpu_torch.ops.resize import _nearest_indices_np
@@ -46,13 +51,25 @@ MISS = object()
 
 
 class ByteLRU:
-    """Byte-bounded LRU of numpy entries (None values cost 0 bytes)."""
+    """Byte-bounded LRU of numpy entries (None values cost 0 bytes). One
+    lock guards it: the prefetch thread, the warm-up thread and the train
+    loop fill it at once (decoding runs outside the lock)."""
 
     def __init__(self, max_bytes: int):
         self._d: collections.OrderedDict = collections.OrderedDict()
-        self._max = max_bytes
+        self.max_bytes = max_bytes
         self._used = 0
         self._lock = threading.Lock()
+
+    def keys(self) -> set:
+        """A snapshot of the cached keys."""
+        with self._lock:
+            return set(self._d)
+
+    @property
+    def used_bytes(self) -> int:
+        with self._lock:
+            return self._used
 
     @staticmethod
     def _nbytes(v) -> int:
@@ -77,7 +94,7 @@ class ByteLRU:
                 self._used -= self._nbytes(self._d.pop(key))
             self._d[key] = value
             self._used += self._nbytes(value)
-            while self._used > self._max and len(self._d) > 1:
+            while self._used > self.max_bytes and len(self._d) > 1:
                 _, old = self._d.popitem(last=False)
                 self._used -= self._nbytes(old)
 
@@ -113,7 +130,9 @@ class SegFrameLoader:
     (V, B, R, R) int32 raw labels, R = ``resize_hw``. Missing views give
     zero frames. Train batches are shuffled per epoch and drop the last
     partial batch; eval batches keep it. Decoded, resized videos stay in a
-    byte-bounded LRU.
+    byte-bounded LRU, which each batch fills first with one batched native
+    read of what it lacks (``_prefill``) and ``warm_async`` fills ahead of
+    the epoch.
     """
 
     def __init__(self, index: PatientIndex, ids: Sequence[str],
@@ -126,10 +145,54 @@ class SegFrameLoader:
         self.is_train = is_train
         self.seed = seed
         self._cache = ByteLRU(cache_bytes)
+        self._warm_stop = threading.Event()
 
     def __len__(self) -> int:
         n = len(self.ids)
         return n * self.cfg.data.train_repeat if self.is_train else n
+
+    def _make_entry(self, img: np.ndarray, lab: np.ndarray):
+        """(resized images, resized labels, labeled frames) of a decoded
+        video: the labeled-frame rule on the raw labels (all frames when
+        none is labeled), then the nearest resize to ``resize_hw``."""
+        r = self.cfg.data.resize_hw
+        img, lab = np.asarray(img).squeeze(), np.asarray(lab).squeeze()
+        if img.ndim == 2:
+            img, lab = img[..., None], lab[..., None]
+        labeled = labeled_frames(lab)
+        if len(labeled) == 0:
+            labeled = np.arange(lab.shape[-1])
+        return (_resize_nearest_np(img, (r, r)),
+                _resize_nearest_np(lab, (r, r)), labeled)
+
+    def _prefill(self, keys) -> None:
+        """Decode the uncached files of ``keys`` in one batched native read
+        (outside the cache's lock). Keys repeat within a batch under
+        ``train_repeat``: each is decoded once. Without the decoder, or
+        when the batch needs the pure reader, it leaves the files to
+        ``_load``."""
+        missing, paths = [], []
+        cached = self._cache.keys()
+        for key in dict.fromkeys(keys):
+            if key in cached:
+                continue
+            img_p, lab_p = self.index.view_paths(*key)
+            if img_p is None:
+                self._cache.put(key, (None, None, None))
+            else:
+                missing.append(key)
+                paths.extend((img_p, lab_p))
+        if not missing:
+            return
+        try:
+            vols = read_nifti_batch_native(paths)
+        except (OSError, RuntimeError, ValueError):
+            # no decoder, or a file it leaves to the pure reader: _load
+            # reads these one by one
+            return
+        for i, key in enumerate(missing):
+            self._cache.put(key, self._make_entry(vols[2 * i],
+                                                  vols[2 * i + 1]))
 
     def _load(self, pid: str, view: str):
         """(resized_images (R,R,T), resized_labels (R,R,T), labeled_idx)."""
@@ -141,18 +204,56 @@ class SegFrameLoader:
         if img_p is None:
             entry = (None, None, None)
         else:
-            r = self.cfg.data.resize_hw
-            img = np.asarray(read_nifti(img_p)).squeeze()
-            lab = np.asarray(read_nifti(lab_p)).squeeze()
-            if img.ndim == 2:
-                img, lab = img[..., None], lab[..., None]
-            labeled = labeled_frames(lab)
-            if len(labeled) == 0:
-                labeled = np.arange(lab.shape[-1])
-            entry = (_resize_nearest_np(img, (r, r)),
-                     _resize_nearest_np(lab, (r, r)), labeled)
+            entry = self._make_entry(read_nifti(img_p), read_nifti(lab_p))
         self._cache.put(key, entry)
         return entry
+
+    def epoch_keys(self, epoch: int = 0) -> list:
+        """The (pid, view) keys ``batches(..., epoch)`` reads, each once,
+        in the order of first use."""
+        rs = np.random.RandomState(self.seed + epoch if self.is_train
+                                   else self.seed)
+        order = np.arange(len(self))
+        if self.is_train:
+            rs.shuffle(order)
+        keys = {}
+        for oi in order:
+            pid = self.ids[oi % len(self.ids)]
+            for view in self.views:
+                keys.setdefault((pid, view))
+        return list(keys)
+
+    def warm_async(self, epoch: int = 0, chunk: int = 8):
+        """Decode the epoch's files into the cache on a daemon thread, in
+        the order the epoch reads them, ``chunk`` keys a batched read; the
+        train loop's own ``_prefill`` and ``_load`` take what is there.
+        It stops at ``stop_warming``, once the cache is 90 % full (further
+        entries would evict the earliest-needed ones), or at any error
+        (``_load`` covers the misses). Returns the thread, or None when
+        the epoch reads nothing."""
+        keys = self.epoch_keys(epoch)
+        if not keys:
+            return None
+        self._warm_stop.clear()
+
+        def run():
+            for i in range(0, len(keys), chunk):
+                if self._warm_stop.is_set():
+                    return
+                if self._cache.used_bytes >= 0.9 * self._cache.max_bytes:
+                    return
+                try:
+                    self._prefill(keys[i:i + chunk])
+                except Exception:
+                    return
+
+        t = threading.Thread(target=run, daemon=True,
+                             name="glfusion-warm-ingest")
+        t.start()
+        return t
+
+    def stop_warming(self) -> None:
+        self._warm_stop.set()
 
     def batches(self, batch_size: int, epoch: int = 0) -> Iterator[dict]:
         rs = np.random.RandomState(self.seed + epoch if self.is_train
@@ -169,6 +270,8 @@ class SegFrameLoader:
                 return
             imgs = np.zeros((len(self.views), len(take), r, r), np.float32)
             masks = np.zeros((len(self.views), len(take), r, r), np.int32)
+            self._prefill([(self.ids[oi % len(self.ids)], view)
+                           for oi in take for view in self.views])
             for bi, oi in enumerate(take):
                 pid = self.ids[oi % len(self.ids)]
                 for vi, view in enumerate(self.views):

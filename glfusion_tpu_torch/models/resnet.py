@@ -113,11 +113,13 @@ def stage_plan(block_sizes: Sequence[int], widths: Sequence[int],
     return plan
 
 
-def iekd_stem(stem_width: int,
-              dtype: torch.dtype = torch.float32) -> nn.Sequential:
-    """The IEKD stem: conv 7×7 s1 p2 with bias, BN, ReLU, maxpool 3×3 s2 p1."""
+def iekd_stem(stem_width: int, dtype: torch.dtype = torch.float32,
+              in_channels: int = 1) -> nn.Sequential:
+    """The IEKD stem: conv 7×7 s1 p2 with bias, BN, ReLU, maxpool 3×3 s2 p1.
+    ``in_channels`` sizes the conv (JAX's ``_stem_conv`` takes the input's
+    channels: 1 in the flagship, 3 in ``deeplabv3_resnet50``)."""
     return nn.Sequential(
-        Conv2d(1, stem_width, 7, stride=1, padding=2, bias=True,
+        Conv2d(in_channels, stem_width, 7, stride=1, padding=2, bias=True,
                compute_dtype=dtype),
         nn.BatchNorm2d(stem_width),
         nn.ReLU(inplace=True),
@@ -164,7 +166,10 @@ class ResNetIEKD(nn.Module):
     """1-channel stride-1-stem dilated ResNet; returns the last stage's map.
 
     Input (B, 1, H, W) → (B, widths[-1]·expansion, H', W') with H' = H/4 at
-    the reference sizes (112 → 28).
+    the reference sizes (112 → 28). ``in_channels`` sizes the stem conv.
+    With ``return_taps`` it returns JAX's taps instead: ``{"stem",
+    "layer1", ...}``, where ``stem`` is the activation after the stem's
+    ReLU and before its max-pool (the reference's ``x_layerbs``).
     """
 
     def __init__(self, stem_width: int = 64,
@@ -173,21 +178,30 @@ class ResNetIEKD(nn.Module):
                  expansion: int = 4,
                  dilate_stages: Sequence[bool] = (False, False, True, True),
                  dtype: torch.dtype = torch.float32, remat: bool = False,
-                 remat_stages: Sequence[bool] | None = None):
+                 remat_stages: Sequence[bool] | None = None,
+                 in_channels: int = 1, return_taps: bool = False):
         super().__init__()
-        self.init_block = iekd_stem(stem_width, dtype)
+        self.init_block = iekd_stem(stem_width, dtype, in_channels)
         self.num_stages = len(block_sizes)
+        self.return_taps = return_taps
         mask = remat_mask(len(block_sizes), remat, remat_stages)
         for s, stage in enumerate(make_stages(
                 stem_width, block_sizes, widths, expansion, dilate_stages,
                 dtype, mask), 1):
             self.add_module(f"layer{s}", stage)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.init_block(x)
+    def forward(self, x: torch.Tensor):
+        if not self.return_taps:
+            x = self.init_block(x)
+            for s in range(1, self.num_stages + 1):
+                x = getattr(self, f"layer{s}")(x)
+            return x
+        x = self.init_block[:3](x)
+        taps = {"stem": x}
+        x = self.init_block[3](x)
         for s in range(1, self.num_stages + 1):
-            x = getattr(self, f"layer{s}")(x)
-        return x
+            x = taps[f"layer{s}"] = getattr(self, f"layer{s}")(x)
+        return taps
 
 
 @contextlib.contextmanager

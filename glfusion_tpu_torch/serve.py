@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from glfusion_tpu_torch.config import Config
-from glfusion_tpu_torch.data.nifti import read_nifti_py, write_nifti
+from glfusion_tpu_torch.data.nifti import read_nifti, write_nifti
 from glfusion_tpu_torch.data.pipeline import align_views
 
 
@@ -188,7 +188,7 @@ class ClipPipeline:
         its native spatial size (see :meth:`stack_raw_views`)."""
         cid, paths = item
         return cid, self.stack_raw_views(
-            {v: read_nifti_py(p) for v, p in paths.items() if p is not None})
+            {v: read_nifti(p) for v, p in paths.items() if p is not None})
 
     def stack_raw_views(self, vols_by_view: Dict[str, np.ndarray]):
         """Raw per-view volumes → the (V, T, H, W, 1) forward input.

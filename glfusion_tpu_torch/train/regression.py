@@ -19,8 +19,8 @@ does:
   * ``evaluate()`` scores the val split: MSE, MAE, RMSE and R².
 
 Deviations from JAX, by design: one device (JAX shards the batch over a
-data-parallel mesh; the port's multi-device path is ROADMAP M15b); no
-``--torch-ckpt`` (no reference checkpoint exists for these models, and
+data-parallel mesh; the port's multi-device path is ROADMAP Queue 1, item
+4); no ``--torch-ckpt`` (no reference checkpoint exists for these models, and
 JAX's converter maps none); the BatchNorms' running variance takes torch's
 unbiased update where flax's takes the biased one (ROADMAP Queue 3).
 """

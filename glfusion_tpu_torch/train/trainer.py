@@ -293,6 +293,9 @@ class Trainer:
         cfg = self.cfg
         num_epochs = num_epochs or cfg.train.num_epochs
         last = {}
+        # decode the epoch's files on a background thread while the first
+        # steps run (JAX's first-step compile; here the first kernels)
+        self.train_loader.warm_async(self.epoch)
         try:
             for epoch in range(self.epoch, num_epochs):
                 t0 = time.time()
@@ -319,6 +322,7 @@ class Trainer:
                               "exiting")
                     break
         finally:
+            self.train_loader.stop_warming()
             # the last checkpoint is in place when train() ends, also when
             # an exception (out of memory, Ctrl-C) leaves the loop
             self.ckpt.wait()

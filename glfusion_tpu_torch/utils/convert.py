@@ -40,10 +40,12 @@ MIXES = ("merge", "early_mix", "late_mix")
 
 
 def _t(a) -> torch.Tensor:
-    """float32; float64 arrays (a float64 JAX tree) stay float64."""
+    """A contiguous float32 copy; float64 arrays (a float64 JAX tree) stay
+    float64."""
     a = np.asarray(a)
     return torch.from_numpy(np.array(
-        a, dtype=np.float64 if a.dtype == np.float64 else np.float32))
+        a, dtype=np.float64 if a.dtype == np.float64 else np.float32,
+        order="C"))
 
 
 def _conv(sd: Dict, key: str, p: Tree, bias: bool = False) -> None:
@@ -274,8 +276,8 @@ def _zoo_node(sd: Dict, key: str, name: str, p: Tree, s: Tree,
               transposed: bool) -> None:
     """The leaves of one flax module (its parameters and batch stats)."""
     if "kernel" in p:
-        sd[f"{key}.weight"] = _t(np.ascontiguousarray(
-            _zoo_kernel(np.asarray(p["kernel"]), transposed)))
+        sd[f"{key}.weight"] = _t(_zoo_kernel(np.asarray(p["kernel"]),
+                                             transposed))
         if "bias" in p:
             sd[f"{key}.bias"] = _t(p["bias"])
     elif "scale" in p:  # a LayerNorm, BatchNorm (C,), CEN's StreamBN (S, C)
@@ -363,6 +365,51 @@ def zoo_state_dict_from_jax(variables: Mapping[str, Tree], arch: str,
     return sd
 
 
+# ------------------------------------------------- the library segmenters
+
+# the extra modules of each ``models/segmentation.py`` variant;
+# ``multiframe`` is ``MultiFrameSegmenter`` (either attention)
+SEG_EXTRAS = {"plain": ("ctr_fc1", "ctr_fc2"), "iekd": (),
+              "project": ("cntr_fc1", "cntr_fc2"),
+              "maxmod": ("coder0", "coder1", "coder2"),
+              "multiframe": ("mlp_red",)}
+
+
+def segmentation_state_dict_from_jax(variables: Mapping[str, Tree],
+                                     variant: str
+                                     ) -> Dict[str, torch.Tensor]:
+    """JAX ``DeepLabV3Single`` variables of ``variant`` (``plain``,
+    ``iekd``, ``project``, ``maxmod``), or ``MultiFrameSegmenter``'s
+    (``multiframe``) → the port module's state dict
+    (``models/segmentation.py``, JAX's names): the backbone and the
+    classifier as ``backbone_state_dict`` and ``head_state_dict``, a Dense
+    (I, O) as a Linear (O, I), a Conv without bias as (O, I, kh, kw)."""
+    if variant not in SEG_EXTRAS:
+        raise ValueError(f"segmentation_state_dict_from_jax: no variant "
+                         f"{variant!r} (one of {sorted(SEG_EXTRAS)})")
+    p, s = variables["params"], variables["batch_stats"]
+    extra = set(p) - {"backbone", "classifier"}
+    if extra != set(SEG_EXTRAS[variant]):
+        raise ValueError(f"{variant}: JAX's tree holds {sorted(extra)}")
+    jb = p["backbone"]
+    blocks = [sum(k.startswith(f"layer{st}_block") for k in jb)
+              for st in range(1, 5)]
+    sd = {f"backbone.{k}": t for k, t in backbone_state_dict(
+        jb, s["backbone"], blocks).items()}
+    rates = sum(k.startswith("b") and k.endswith("_conv") and k != "b0_conv"
+                for k in p["classifier"]["aspp"])
+    sd.update({f"classifier.{k}": t for k, t in head_state_dict(
+        p["classifier"], s["classifier"], rates).items()})
+    for name in SEG_EXTRAS[variant]:
+        k = np.asarray(p[name]["kernel"])
+        if k.ndim == 2:  # Dense
+            sd[f"{name}.weight"] = _t(k.T)
+            sd[f"{name}.bias"] = _t(p[name]["bias"])
+        else:
+            _conv(sd, name, p[name])
+    return sd
+
+
 # ---------------------------------------------------------- the regressors
 
 def _reg_walk(sd: Dict, key: str, p: Tree, s: Tree, flip: tuple) -> None:
@@ -372,13 +419,13 @@ def _reg_walk(sd: Dict, key: str, p: Tree, s: Tree, flip: tuple) -> None:
         k = f"{key}.{name}" if key else name
         if not isinstance(sub, Mapping):
             if name == "conv_kernel":  # ECA's flax (k, 1, 1) WIO kernel
-                sd[f"{key}.conv.weight"] = _t(np.ascontiguousarray(
-                    np.transpose(np.asarray(sub), (2, 1, 0))))
+                sd[f"{key}.conv.weight"] = _t(
+                    np.transpose(np.asarray(sub), (2, 1, 0)))
             else:  # TimeSformer's cls_token
                 sd[k] = _t(sub)
         elif "kernel" in sub:  # Conv, ConvTranspose, Dense
-            sd[f"{k}.weight"] = _t(np.ascontiguousarray(_zoo_kernel(
-                np.asarray(sub["kernel"]), transposed=name in flip)))
+            sd[f"{k}.weight"] = _t(_zoo_kernel(np.asarray(sub["kernel"]),
+                                               transposed=name in flip))
             if "bias" in sub:
                 sd[f"{k}.bias"] = _t(sub["bias"])
         elif "scale" in sub:

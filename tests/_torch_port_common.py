@@ -6,6 +6,7 @@ JAX package and the port, so the two see the same arrays.
 
 from __future__ import annotations
 
+import concurrent.futures
 import functools
 
 import jax
@@ -40,6 +41,24 @@ FAST_COMPILE = {"xla_backend_optimization_level": 0,
                 "xla_llvm_disable_expensive_passes": True}
 
 
+# one thread that compiles and runs the JAX references a test file asks
+# for ahead of use (``compile_and_run``); started at the first submit
+_COMPILER = concurrent.futures.ThreadPoolExecutor(
+    max_workers=1, thread_name_prefix="jax-reference")
+
+
+def compile_and_run(lowered, *args, x64: bool = False, then=lambda r: r):
+    """A future of ``then(jax.device_get(lowered.compile()(*args)))``,
+    computed on one background thread. XLA:CPU compiles in C++ without the
+    interpreter's lock, so one reference's compile overlaps the tracing of
+    the next on the caller's thread (a third less time for a file of float64
+    zoo references); the arithmetic is the same program's."""
+    def run():
+        with jax.enable_x64(x64):
+            return then(jax.device_get(lowered.compile()(*args)))
+    return _COMPILER.submit(run)
+
+
 @pytest.fixture(scope="module", autouse=True)
 def one_torch_thread():
     """Six test workers share the machine's cores: one torch thread each."""
@@ -65,12 +84,43 @@ def _fill(path, shape, rs: np.random.RandomState) -> np.ndarray:
     raise KeyError(f"no filler for {path}")
 
 
+def _zeros_like_draw(real, shape_at: int):
+    """A ``jax.random`` draw that gives zeros of the draw's shape and type:
+    what ``init_shapes`` traces in place of the initializers' arithmetic."""
+    def draw(key, *args, **kw):
+        names = ("lower", "upper", "shape", "dtype")[4 - shape_at - 2:]
+        bound = dict(zip(names, args), **kw)
+        shape = bound.get("shape", () if shape_at == 0 else None)
+        if shape is None:
+            return real(key, *args, **kw)
+        return jnp.zeros(shape, bound.get("dtype"))
+    return draw
+
+
+def init_shapes(init_fn):
+    """``jax.eval_shape(init_fn)`` (a trace, no compile) with the random
+    initializers drawing zeros: the variables' shapes and types are the
+    same, and the trace skips each initializer's arithmetic (a third of an
+    init's trace; the tests fill every leaf from numpy anyway)."""
+    from unittest import mock
+
+    from jax._src import random as jrandom
+
+    with mock.patch.object(jrandom, "truncated_normal", _zeros_like_draw(
+            jrandom.truncated_normal, 2)), \
+            mock.patch.object(jrandom, "normal", _zeros_like_draw(
+                jrandom.normal, 0)), \
+            mock.patch.object(jrandom, "uniform", _zeros_like_draw(
+                jrandom.uniform, 0)):
+        return jax.eval_shape(init_fn)
+
+
 def random_variables(init_fn, seed: int = 0):
     """Random ``{'params', 'batch_stats'}`` in the shapes ``init_fn`` would
-    make, traced with ``jax.eval_shape`` (no compile). Every BN gets random
+    make, traced with ``init_shapes`` (no compile). Every BN gets random
     running stats and a nonzero scale, TPAVI's zero-initialized W_z BN too.
     """
-    shapes = jax.eval_shape(init_fn)
+    shapes = init_shapes(init_fn)
     rs = np.random.RandomState(seed)
     return jax.tree_util.tree_map_with_path(
         lambda p, s: _fill(tuple(k.key for k in p), s.shape, rs).astype(

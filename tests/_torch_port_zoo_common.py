@@ -12,9 +12,13 @@ statistics, UTNet's position tables and the PReLU slopes random, part of
 CEN's bn2 scales under the exchange threshold, TPAVI's W_z BN nonzero) and
 go across with ``utils/convert.zoo_state_dict_from_jax``. JAX runs in
 float64 (``jax.enable_x64``), once per arch for both checks (``EVAL_ONLY``
-archs: eval alone); for the AVS family and the legacy kinds its large
-convolutions run as one product of their taps (``_conv64``) and its
-float32 accumulations in float64 (``_einsum64``):
+archs: eval alone); for CEN, the AVS family and the legacy kinds its large
+convolutions run as one product of their taps (``_conv64``), for the
+latter two its float32 accumulations in float64 (``_einsum64``):
+
+The first eval test of a file traces and lowers every reference its
+file's selected tests ask for (``references_ahead``), in order; each
+compiles and runs on a background thread while the next traces.
 
 * ``check_eval``: the adapter's outputs, the port in float32, within 1e-4
   in relative norm of JAX's ``build_seg_model`` adapter.
@@ -34,7 +38,6 @@ float32 accumulations in float64 (``_einsum64``):
 from __future__ import annotations
 
 import dataclasses
-import functools
 from unittest import mock
 
 import flax.linen as fnn
@@ -43,7 +46,8 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
-from _torch_port_common import FAST_COMPILE, _fill
+from _torch_port_common import (FAST_COMPILE, _fill, compile_and_run,
+                                init_shapes)
 from glfusion_tpu.config import ModelConfig as JModelConfig
 from glfusion_tpu.models import avs as javs
 from glfusion_tpu.models import cen as jcen
@@ -82,7 +86,7 @@ def _zoo_fill(path, shape, rs):
 
 
 def _random_variables(init_fn, seed: int = 0):
-    shapes = jax.eval_shape(init_fn)
+    shapes = init_shapes(init_fn)
     rs = np.random.RandomState(seed)
     return jax.tree_util.tree_map_with_path(
         lambda p, s: _zoo_fill(tuple(k.key for k in p), s.shape, rs).astype(
@@ -358,14 +362,49 @@ TRAIN_TOL = {None: (1e-8, 1e-9, 1e-6),
              "multiview_unet": (1e-6, 1e-6, 1e-4)}
 
 
-@functools.lru_cache(maxsize=None)
+_CASES: dict = {}
+# the tests that ask for a reference, and the level each asks for
+_EVAL_TEST, _TRAIN_TEST = ("test_zoo_eval_matches_jax",
+                           "test_zoo_train_grads_match_jax")
+
+
+def _level(test, arch) -> str:
+    return "module" if test == _TRAIN_TEST and arch in MODULE_LEVEL \
+        else "adapter"
+
+
+def references_ahead(request) -> list:
+    """The (arch, level) references that pytest's selected tests of the
+    calling test's module ask for, in their order."""
+    return [(item.callspec.params["arch"],
+             _level(item.originalname, item.callspec.params["arch"]))
+            for item in request.session.items
+            if getattr(item, "module", None) is request.module
+            and item.originalname in (_EVAL_TEST, _TRAIN_TEST)]
+
+
+def start_references(cases) -> None:
+    """Trace and lower each (arch, level) reference not started yet, in
+    order, here; each compiles and runs on the background thread
+    (``compile_and_run``) while the next one traces."""
+    for key in cases:
+        if key not in _CASES:
+            _CASES[key] = _start(*key)
+
+
 def jax_case(arch, level: str):
     """JAX in float64 (``jax.enable_x64``) on seeded numpy inputs, in one
     compile: at ``level='adapter'`` the adapter's eval outputs and (but for
     ``MODULE_LEVEL``) the train-mode outputs, the supervised loss and its
     gradients; at ``level='module'`` the latter of the module without
     dropout. Frames of ``_hw(arch)``². Returns (variables, x, masks, eval
-    outputs, train outputs, loss, gradients), numpy."""
+    outputs, train outputs, loss, gradients), numpy; computed once."""
+    start_references([(arch, level)])
+    return _CASES[(arch, level)].result()
+
+
+def _start(arch, level: str):
+    """``jax_case``'s reference, traced and lowered here: a future."""
     rs = np.random.RandomState(1)
     module = level == "module"
     hw = _hw(arch)
@@ -399,18 +438,22 @@ def jax_case(arch, level: str):
                   if train else ((None, None), None))
             return ev, tr
 
-        # CEN's float64 convs run 6× faster under XLA's full optimization,
-        # which outweighs its longer compile; the others' compile dominates
-        opts = None if arch == "cen" else FAST_COMPILE
+        # CEN's large float64 convolutions run as products of their taps
+        # too (XLA's own float64 loop at the low optimization level is
+        # what made its reference slow), so it compiles as fast as the rest
         second_half = arch.startswith(("avs_", "legacy:"))
         with mock.patch.object(jcen, "StreamBN", _StreamBN64), \
                 mock.patch.object(jnp, "einsum",
                                   _einsum64 if second_half else _EINSUM), \
                 mock.patch.object(jax.lax, "conv_general_dilated",
-                                  _conv64 if second_half else _CONV):
-            ev, ((loss, tr), g) = jax.device_get(
-                jax.jit(run, compiler_options=opts)(v))
-    return v, x, masks, ev, tr, loss, g
+                                  _conv64 if second_half or arch == "cen"
+                                  else _CONV):
+            lowered = jax.jit(run, compiler_options=FAST_COMPILE).lower(v)
+
+    def results(out):
+        ev, ((loss, tr), g) = out
+        return v, x, masks, ev, tr, loss, g
+    return compile_and_run(lowered, v, x64=True, then=results)
 
 
 def port_zoo(arch, variables, dtype=torch.float32, hw=16):
@@ -421,8 +464,10 @@ def port_zoo(arch, variables, dtype=torch.float32, hw=16):
     return m.to(dtype)
 
 
-def check_eval(arch):
-    """The port's float32 adapter against JAX's float64 one."""
+def check_eval(arch, ahead=()):
+    """The port's float32 adapter against JAX's float64 one; the
+    references ``ahead`` (``references_ahead``) start behind it."""
+    start_references([(arch, "adapter"), *ahead])
     v, x, _, ref, *_ = jax_case(arch, "adapter")
     ref = _outputs(ref)
     m = port_zoo(arch, v, hw=x.shape[2]).eval()

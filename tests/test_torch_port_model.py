@@ -18,8 +18,8 @@ import pytest
 import torch
 
 from _torch_port_common import (FAST_COMPILE, TINY_MODEL, TOL,  # noqa: F401
-                                one_torch_thread, random_variables,
-                                tiny_flagship, to_numpy)
+                                init_shapes, one_torch_thread,
+                                random_variables, tiny_flagship, to_numpy)
 from glfusion_tpu import config as jconfig
 from glfusion_tpu.config import ModelConfig as JModelConfig
 from glfusion_tpu.models.glfusion import GlobalAndLocal as JGlobalAndLocal
@@ -55,7 +55,8 @@ def jax_case():
 @pytest.fixture(scope="module")
 def jax_apply(jax_case):
     jm = jax_case[0]
-    return jax.jit(lambda v, x: jm.apply(v, x, False))
+    return jax.jit(lambda v, x: jm.apply(v, x, False),
+                   compiler_options=FAST_COMPILE)
 
 
 @pytest.fixture(scope="module")
@@ -101,8 +102,8 @@ def test_forward_train_matches_jax(jax_case):
     """
     jm, v, x = jax_case
     ref, upd = jax.jit(lambda v, x: jm.apply(v, x, True,
-                                             mutable=["batch_stats"]))(
-        v, jnp.asarray(x))
+                                             mutable=["batch_stats"]),
+                       compiler_options=FAST_COMPILE)(v, jnp.asarray(x))
     m, m64 = _port(v).train(), _port(v).double().train()
     with torch.no_grad():
         out = m(torch.from_numpy(x))
@@ -306,8 +307,8 @@ def test_forward_is_video_matches_jax(jax_case):
     ``is_video=True`` on the same weights; every output within TOL. The
     fold is not the per-frame forward: ``f4_global`` moves."""
     jm, v, x = jax_case
-    ref = jax.jit(lambda v, x: jm.apply(v, x, False, is_video=True))(
-        v, jnp.asarray(x))
+    ref = jax.jit(lambda v, x: jm.apply(v, x, False, is_video=True),
+                  compiler_options=FAST_COMPILE)(v, jnp.asarray(x))
     m = _port(v, use_pallas_fusion=True).eval()
     with torch.no_grad():
         out = m(torch.from_numpy(x), is_video=True)
@@ -330,7 +331,7 @@ def test_cps_twin_matches_two_jax_flagships(jax_case, jax_apply):
     v2 = random_variables(lambda: jm.init(jax.random.PRNGKey(0),
                                           jnp.asarray(x), False), 8)
     twin = {k: {"net1": v[k], "net2": v2[k]} for k in v}
-    want_tree = jax.eval_shape(lambda: JGlobalAndLocalCPS(JCFG).init(
+    want_tree = init_shapes(lambda: JGlobalAndLocalCPS(JCFG).init(
         jax.random.PRNGKey(0), jnp.asarray(x), False))
     assert (jax.tree_util.tree_structure(twin)
             == jax.tree_util.tree_structure(

@@ -12,8 +12,9 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port_common import (TOL, one_torch_thread,  # noqa: F401
-                                random_variables, to_numpy)
+from _torch_port_common import (FAST_COMPILE, TOL,  # noqa: F401
+                                one_torch_thread, random_variables,
+                                to_numpy)
 from glfusion_tpu.models.aspp import DeepLabHead as JDeepLabHead
 from glfusion_tpu.models.resnet import ResNetIEKD as JResNetIEKD
 from glfusion_tpu.models.tpavi import TPAVI as JTPAVI
@@ -49,7 +50,8 @@ def test_tpavi_eval_matches_jax(tpavi_case, impl):
     """Eval (fused θ/φ/g projection), W_z BN scale ≠ 0; 'pallas' runs the
     kernel's plain version on the CPU against JAX's default order."""
     jm, v, x = tpavi_case
-    ref = jax.jit(lambda v, x: jm.apply(v, x, False))(v, jnp.asarray(x))
+    ref = jax.jit(lambda v, x: jm.apply(v, x, False),
+                  compiler_options=FAST_COMPILE)(v, jnp.asarray(x))
     m = TPAVI(16, attn_impl=impl)
     m.load_state_dict(tpavi_state_dict(v["params"], v["batch_stats"]))
     assert (m.W_z[1].weight != 0).all()
@@ -65,8 +67,8 @@ def test_tpavi_train_matches_jax(tpavi_case):
     variance, flax with the biased one, a factor n/(n−1) over n rows."""
     jm, v, x = tpavi_case
     ref, upd = jax.jit(lambda v, x: jm.apply(v, x, True,
-                                             mutable=["batch_stats"]))(
-        v, jnp.asarray(x))
+                                             mutable=["batch_stats"]),
+                       compiler_options=FAST_COMPILE)(v, jnp.asarray(x))
     m = TPAVI(16).train()
     m.load_state_dict(tpavi_state_dict(v["params"], v["batch_stats"]))
     got = m(torch.from_numpy(x))
@@ -98,8 +100,8 @@ def test_tpavi_modes_match_jax(mode, train):
     assert ("theta" in v["params"]) == (mode != "gaussian")
     assert ("w_f" in v["params"]) == (mode == "concatenate")
     ref, upd = jax.jit(lambda v, x: jm.apply(v, x, train,
-                                             mutable=["batch_stats"]))(
-        v, jnp.asarray(x))
+                                             mutable=["batch_stats"]),
+                       compiler_options=FAST_COMPILE)(v, jnp.asarray(x))
     m = TPAVI(16, 8, mode=mode).train(train)
     m.load_state_dict(tpavi_state_dict(v["params"], v["batch_stats"]))
     assert (m.W_z[1].weight != 0).all()
@@ -115,7 +117,8 @@ def test_resnet_iekd_matches_jax():
     x = np.random.RandomState(2).rand(2, 32, 32, 1).astype(np.float32)
     jm = JResNetIEKD(**arch)
     v = random_variables(lambda: jm.init(KEY, jnp.asarray(x), False), seed=3)
-    ref = jax.jit(lambda v, x: jm.apply(v, x, False))(v, jnp.asarray(x))
+    ref = jax.jit(lambda v, x: jm.apply(v, x, False),
+                  compiler_options=FAST_COMPILE)(v, jnp.asarray(x))
     m = ResNetIEKD(**arch)
     m.load_state_dict(backbone_state_dict(v["params"], v["batch_stats"],
                                           arch["block_sizes"]))
@@ -133,7 +136,8 @@ def test_deeplab_head_matches_jax(rates):
         np.float32)
     jm = JDeepLabHead(num_outputs=5, channels=8, rates=rates, dropout=0.0)
     v = random_variables(lambda: jm.init(KEY, jnp.asarray(x), False), seed=5)
-    ref = jax.jit(lambda v, x: jm.apply(v, x, False))(v, jnp.asarray(x))
+    ref = jax.jit(lambda v, x: jm.apply(v, x, False),
+                  compiler_options=FAST_COMPILE)(v, jnp.asarray(x))
     m = DeepLabHead(16, 5, channels=8, rates=rates, dropout=0.0)
     m.load_state_dict(head_state_dict(v["params"], v["batch_stats"],
                                       len(rates)))

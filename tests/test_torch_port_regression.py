@@ -30,7 +30,6 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-import functools
 import io
 import json
 from pathlib import Path
@@ -42,7 +41,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port_common import FAST_COMPILE, _fill
+from _torch_port_common import (FAST_COMPILE, _fill, compile_and_run,
+                                init_shapes)
 from _torch_port_common import one_torch_thread  # noqa: F401
 from glfusion_tpu import cli as jcli
 from glfusion_tpu.config import tiny_config as j_tiny_config
@@ -85,11 +85,27 @@ def _reg_fill(path, shape, rs):
     return _fill(path, shape, rs)
 
 
-@functools.lru_cache(maxsize=None)
+_CASES: dict = {}
+
+
+def start_references(names) -> None:
+    """Trace and lower each regressor's reference not started yet, in
+    order; each compiles and runs on the background thread while the next
+    traces (``compile_and_run``)."""
+    for name in names:
+        if name not in _CASES:
+            _CASES[name] = _start(name)
+
+
 def jax_case(name):
     """JAX's ``build_reg_model`` at the tiny overrides on seeded inputs, in
     one compile: (variables, clips, targets, eval output, train loss,
     gradients, new batch stats), numpy; float64 for ``FLOAT64``."""
+    start_references([name])
+    return _CASES[name].result()
+
+
+def _start(name):
     rs = np.random.RandomState(1)
     clips = rs.rand(V, B, HW, HW, T)
     targets = rs.uniform(20, 80, B)
@@ -99,8 +115,8 @@ def jax_case(name):
                           **cli.TINY_REG[name])
     with jax.enable_x64(wide):
         x = adapter(jnp.asarray(clips, ftype))
-        shapes = jax.eval_shape(lambda: jm.init(jax.random.PRNGKey(0), x,
-                                                False))
+        shapes = init_shapes(lambda: jm.init(jax.random.PRNGKey(0), x,
+                                             False))
         vrs = np.random.RandomState(3)
         v = jax.tree_util.tree_map_with_path(
             lambda p, s: _reg_fill(tuple(k.key for k in p), s.shape,
@@ -124,8 +140,9 @@ def jax_case(name):
         # optimization, which outweighs the longer compile (13.5 s against
         # 25 s on one core); the float32 references' compile dominates
         opts = None if wide else FAST_COMPILE
-        out = jax.device_get(jax.jit(run, compiler_options=opts)(v))
-    return (v, clips.astype(ftype), targets.astype(ftype)) + tuple(out)
+        lowered = jax.jit(run, compiler_options=opts).lower(v)
+    return compile_and_run(lowered, v, x64=wide, then=lambda out: (
+        v, clips.astype(ftype), targets.astype(ftype)) + tuple(out))
 
 
 def port_model(name, variables, dtype=torch.float32):
@@ -135,8 +152,15 @@ def port_model(name, variables, dtype=torch.float32):
 
 
 @pytest.mark.parametrize("name", NAMES)
-def test_reg_eval_matches_jax(name):
-    """The eval forward (Resnet50PFS's seg maps too), the port in float32."""
+def test_reg_eval_matches_jax(name, request):
+    """The eval forward (Resnet50PFS's seg maps too), the port in float32.
+    The first starts every selected test's reference behind its own."""
+    start_references([name] + [
+        item.callspec.params["name"] for item in request.session.items
+        if getattr(item, "module", None) is request.module
+        and "name" in getattr(getattr(item, "callspec", None), "params", {})
+        and item.originalname in ("test_reg_eval_matches_jax",
+                                  "test_reg_train_step_matches_jax")])
     v, clips, _, ev, *_ = jax_case(name)
     m, adapter = port_model(name, v)
     m.eval()
@@ -348,8 +372,10 @@ def test_geglu_uses_the_tanh_gelu():
     rs = np.random.RandomState(0)
     x = rs.standard_normal((2, 5, 8)).astype(np.float32) * 3
     jm = jtimesformer.GEGLUFeedForward(8, mult=2)
-    variables = jm.init(jax.random.PRNGKey(0), jnp.asarray(x))
-    ref = np.asarray(jm.apply(variables, jnp.asarray(x)))
+    variables = jax.jit(jm.init, compiler_options=FAST_COMPILE)(
+        jax.random.PRNGKey(0), jnp.asarray(x))
+    ref = np.asarray(jax.jit(jm.apply, compiler_options=FAST_COMPILE)(
+        variables, jnp.asarray(x)))
     m = timesformer.GEGLUFeedForward(8, mult=2)
     sd = reg_state_dict_from_jax(jax.device_get(variables), "timesformer")
     m.load_state_dict(sd)
@@ -423,9 +449,10 @@ def test_resnet3d_stem_pads_t_over_2():
     v = jax.tree_util.tree_map_with_path(
         lambda p, a: _reg_fill(tuple(k.key for k in p), a.shape,
                                rs).astype(np.float32),
-        {k: a for k, a in jax.eval_shape(lambda: jm.init(
+        {k: a for k, a in init_shapes(lambda: jm.init(
             jax.random.PRNGKey(0), jnp.asarray(x))).items()})
-    ref = np.asarray(jm.apply(v, jnp.asarray(x)))
+    ref = np.asarray(jax.jit(jm.apply, compiler_options=FAST_COMPILE)(
+        v, jnp.asarray(x)))
     m = resnet3d.ResNet3D(2, depth=10, widths=(4, 4, 4, 4), conv1_t_size=5,
                           no_max_pool=True).eval()
     m.load_state_dict(reg_state_dict_from_jax(v, "resnet50pah"))

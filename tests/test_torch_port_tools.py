@@ -10,13 +10,14 @@ from __future__ import annotations
 import json
 from types import SimpleNamespace
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from _torch_port_common import (TINY_MODEL, one_torch_thread,  # noqa: F401
-                                tiny_flagship)
+from _torch_port_common import (FAST_COMPILE, TINY_MODEL,  # noqa: F401
+                                one_torch_thread, tiny_flagship)
 from glfusion_tpu.utils import activations as jact
 from glfusion_tpu.utils import helpers as jhelpers
 from glfusion_tpu.utils import profiling as jprof
@@ -65,12 +66,31 @@ def test_consume_state_matches_jax():
     assert got == pytest.approx(want, rel=1e-6)
 
 
+class _JittedApply:
+    """``jm`` whose ``apply`` with intermediates runs as one jitted program
+    (``FAST_COMPILE``): JAX's ``capture_activations`` calls ``apply``
+    eagerly, which compiles every operation on its own (20 s of XLA:CPU
+    compiles with a cold cache). The dump is the same tree of the same
+    values, up to XLA's fusion of float32 arithmetic."""
+
+    def __init__(self, jm):
+        self._apply = jax.jit(
+            lambda v, x: jm.apply(v, x, False, capture_intermediates=True,
+                                  mutable=["intermediates"]),
+            compiler_options=FAST_COMPILE)
+
+    def apply(self, variables, x, train, **kw):
+        assert not train and kw == dict(capture_intermediates=True,
+                                        mutable=["intermediates"])
+        return self._apply(variables, x)
+
+
 def test_capture_activations_matches_jax():
     """The tiny flagship's dumps share the backbone's, the heads' and the
     attentions' flax paths and the outputs, within 1e-4."""
     jm, v = tiny_flagship()
     x = np.random.RandomState(0).rand(3, 2, 32, 32, 1).astype(np.float32)
-    ref = jact.capture_activations(jm, v, jnp.asarray(x))
+    ref = jact.capture_activations(_JittedApply(jm), v, jnp.asarray(x))
     cfg = ModelConfig(**TINY_MODEL)
     m = GlobalAndLocal(cfg)
     m.load_state_dict(state_dict_from_jax(v, cfg))

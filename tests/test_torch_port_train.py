@@ -18,7 +18,8 @@ import optax
 import pytest
 import torch
 
-from _torch_port_common import one_torch_thread, random_variables  # noqa: F401
+from _torch_port_common import (FAST_COMPILE, one_torch_thread,  # noqa: F401
+                                random_variables)
 from glfusion_tpu import config as jconfig
 from glfusion_tpu.data import pipeline as jpipe
 from glfusion_tpu.data.infos import PatientIndex as JPatientIndex
@@ -535,7 +536,8 @@ def test_cli_train_then_val_and_jax_scores_the_checkpoint(tmp_path, capsys):
     variables = load_torch_checkpoint(str(tmp_path / "ckpt" /
                                           "net_00001.pth"), jcfg.model)
     want = jax.jit(lambda v, x: JGlobalAndLocal(jcfg.model).apply(
-        v, x, False)["mask"])(variables, jnp.asarray(clip["images"]))
+        v, x, False)["mask"], compiler_options=FAST_COMPILE)(
+            variables, jnp.asarray(clip["images"]))
     np.testing.assert_allclose(got, np.asarray(want), **TOL)
 
 

@@ -21,7 +21,8 @@ import pytest
 import torch
 
 from _torch_port_common import one_torch_thread  # noqa: F401
-from _torch_port_zoo_common import TINY, check_eval, check_train
+from _torch_port_zoo_common import (TINY, check_eval,
+                                    check_train, references_ahead)
 from glfusion_tpu import arch_names as jarch
 from glfusion_tpu.train import trainer as jtrainer
 from glfusion_tpu_torch import arch_names, cli
@@ -36,8 +37,8 @@ ALL_ARCHS = ARCHS + ("multiview_unet", "utnet", "cen", "res3dunet")
 
 
 @pytest.mark.parametrize("arch", ARCHS)
-def test_zoo_eval_matches_jax(arch):
-    check_eval(arch)
+def test_zoo_eval_matches_jax(arch, request):
+    check_eval(arch, ahead=references_ahead(request))
 
 
 @pytest.mark.parametrize("arch", ARCHS)

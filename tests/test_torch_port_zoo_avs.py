@@ -18,8 +18,9 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-from _torch_port_common import one_torch_thread  # noqa: F401
-from _torch_port_zoo_common import TINY, check_eval, check_train
+from _torch_port_common import init_shapes, one_torch_thread  # noqa: F401
+from _torch_port_zoo_common import (TINY, check_eval,
+                                    check_train, references_ahead)
 from glfusion_tpu.models.avs import ViewChannelTransformer as JVCT
 from glfusion_tpu_torch.config import Config
 from glfusion_tpu_torch.models import build_model
@@ -30,8 +31,8 @@ ARCHS = ("avs_baseline", "avs_transfusion")
 
 
 @pytest.mark.parametrize("arch", ARCHS)
-def test_zoo_eval_matches_jax(arch):
-    check_eval(arch)
+def test_zoo_eval_matches_jax(arch, request):
+    check_eval(arch, ahead=references_ahead(request))
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -44,7 +45,7 @@ def test_view_channel_transformer_shapes_match_jax():
     LayerNorm's affine over V alone (flax ``feature_axes=-1``); at a 112²
     crop the four stages' token dimensions are 784, 196, 49 and 16."""
     v, c, h, w = 3, 8, 5, 6
-    shapes = jax.eval_shape(lambda: JVCT().init(
+    shapes = init_shapes(lambda: JVCT().init(
         jax.random.PRNGKey(0), jnp.zeros((v, 2, h, w, c)), False))
     jp = {f"{m}.{k}": s.shape for m, d in shapes["params"].items()
           for k, s in d.items()}

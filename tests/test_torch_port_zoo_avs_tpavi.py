@@ -19,7 +19,8 @@ import pytest
 import torch
 
 from _torch_port_common import one_torch_thread  # noqa: F401
-from _torch_port_zoo_common import TINY, check_eval, check_train
+from _torch_port_zoo_common import (TINY, check_eval,
+                                    check_train, references_ahead)
 from glfusion_tpu import config as jconfig
 from glfusion_tpu.train.train_state import make_optimizer as j_make_optimizer
 from glfusion_tpu_torch.models import build_model
@@ -30,8 +31,8 @@ ARCHS = ("avs_model17", "avs_pred_endecoder")
 
 
 @pytest.mark.parametrize("arch", ARCHS)
-def test_zoo_eval_matches_jax(arch):
-    check_eval(arch)
+def test_zoo_eval_matches_jax(arch, request):
+    check_eval(arch, ahead=references_ahead(request))
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -18,7 +18,8 @@ import pytest
 import torch
 
 from _torch_port_common import one_torch_thread  # noqa: F401
-from _torch_port_zoo_common import TINY, _jcfg, check_eval, check_train
+from _torch_port_zoo_common import (TINY, _jcfg, check_eval,
+                                    check_train, references_ahead)
 from glfusion_tpu.models import legacy_variants as jleg
 from glfusion_tpu_torch.models import (LegacyMultiviewSeg,
                                        SpatialConcatFusion, SpatialMLP)
@@ -32,8 +33,8 @@ TRAIN = ("legacy:channel_transformer", "legacy:mlp_concat", "legacy:model20",
 
 
 @pytest.mark.parametrize("arch", ARCHS)
-def test_zoo_eval_matches_jax(arch):
-    check_eval(arch)
+def test_zoo_eval_matches_jax(arch, request):
+    check_eval(arch, ahead=references_ahead(request))
 
 
 @pytest.mark.parametrize("arch", TRAIN)

@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from _torch_port_common import one_torch_thread  # noqa: F401
-from _torch_port_zoo_common import check_eval, check_train
+from _torch_port_zoo_common import check_eval, check_train, references_ahead
 from glfusion_tpu.models import cen as jcen
 from glfusion_tpu.ops import resize as jresize
 from glfusion_tpu_torch.models import cen as pcen
@@ -25,8 +25,8 @@ ARCHS = ("multiview_unet", "utnet", "cen", "res3dunet")
 
 
 @pytest.mark.parametrize("arch", ARCHS)
-def test_zoo_eval_matches_jax(arch):
-    check_eval(arch)
+def test_zoo_eval_matches_jax(arch, request):
+    check_eval(arch, ahead=references_ahead(request))
 
 
 @pytest.mark.parametrize("arch", ARCHS)
