@@ -100,6 +100,20 @@ nonzero:
           against the plain stem on the step's tensors; the eval forward
           against the plain stems and the reassociated order; s/step and
           peak memory per variant.
+  mesh    two ranks share the card over gloo (the script starts itself
+          twice as ``--mesh-rank``, as a launcher would: ``PMI_SIZE``,
+          ``PMI_RANK``): the full-width float32 flagship with K1 and the
+          fused stems takes one step through ``Trainer`` at (data 2),
+          (model 2) and with ``temporal`` at (data 2), on a global batch
+          of 4 frames and a 24-frame clip a view; rank 0 then runs one
+          process's step on the same batch and state. The gradients and
+          the BN running statistics within ``step_verdict`` of one
+          process's plain path (its second paths' noise, ``STEP_TOL``),
+          the weights against Adam's update of the summed gradients, the
+          replicated leaves bit for bit equal on both ranks, K1 and the
+          stems launched and held in situ in the ranks, the (1, 2)
+          checkpoint restored by one process bit for bit; each rank's
+          peak memory, the step's seconds and one process's.
   zoo     the segmentation zoo (``--model``: the U-Net family, the
           multi-view U-Nets, UTNet, CEN, the 3-D ResUNet) at ``Config()``
           widths, float32: each trains 2 steps through ``Trainer``, then an
@@ -212,12 +226,23 @@ STEP_TOL = {"loss": 1e-4, "grad": 1e-3, "noise": 10, "noise_paths": 3,
             "small": 64, "kernel": KERNEL_NORM_TOL["float32"], "stem": 1e-5}
 # bfloat16 (one rounding is 2⁻⁸ relative, and any two summation orders
 # round some near-tied sums apart): each loss and gradient within 10× the
-# larger of two second plain paths' own differences + 1e-2 (PERF.md
-# section 2)
+# largest of three second plain paths' own differences + 1e-2 (PERF.md
+# section 2), the third through the fused stem's plain version with K1's
+# bfloat16 hi/lo intermediate; every tensor against itself. The heads'
+# last conv biases are read before their last rounding
+# (``exact_bias_sums``)
 STEP_TOL_BF16 = {"loss": 1e-2, "loss_noise": 10, "grad": 1e-2, "noise": 10,
-                 "noise_paths": 2, "small": 1,
+                 "noise_paths": 3, "small": 1,
                  "kernel": KERNEL_NORM_TOL["bfloat16"],
                  "stem": STEM_TOL["bfloat16"]["grad"]}
+# a conv computing in bfloat16 whose bias has fewer elements than this
+# (the heads' last convs: one a class, and the centerness head's one) has
+# its bias gradient read as the float64 sum of its output's cotangent.
+# Autograd rounds that sum once to one bfloat16 number, so paths land on
+# the same value or whole ulps (0.4–0.8 %) apart, and a second path that
+# lands on the plain path's value reads a noise of exactly 0 (PERF.md
+# section 6, PR 17)
+EXACT_BIAS_ELEMENTS = 64
 # the ASPP check: f4 of a 40-frame clip at 112² (28²) and 160² (40²), the
 # clipped-tap form against plain dilated convolutions; relative norm of
 # the output and of every gradient. The gradients pass train-mode BNs and
@@ -1259,22 +1284,76 @@ def plain_attention(theta, phi, g, *, impl: str = "auto"):
     "naive" only where its N×N map is small (N ≤ NAIVE_MAX_N); above, the
     reassociated chain in float64, rounded once to float32 (another
     rounding of the same function). ``temporal``'s N = 94 080 would need a
-    35 GB map."""
+    35 GB map. ``hilo``: the bfloat16 kernel's own rounding in plain
+    products, its float32 intermediate kept as a bfloat16 hi/lo pair (hi
+    = bf16(M), lo = bf16(M − hi); M = φᵀg, or θφᵀ where N ≤ C') and the
+    two halves contracted into one float32 sum: the one rounding of K1's
+    that no other plain path carries (about 2⁻¹⁷ of M, then flips of y's
+    bfloat16 rounding)."""
     import torch
 
     from glfusion_tpu_torch.ops.nonlocal_attn import dot_nonlocal_attention
 
     n = theta.shape[-2]
+    if impl == "hilo":
+        f32, bf16 = torch.float32, torch.bfloat16
+        t, p, gg = (x.to(f32) for x in (theta, phi, g))
+
+        def hilo(m):  # (B, R, C) float32 → (B, R, 2C): [hi ‖ lo]
+            hi = m.to(bf16)
+            return torch.cat([hi, (m - hi.to(f32)).to(bf16)], -1).to(f32)
+
+        if n > theta.shape[-1]:  # θ(φᵀg): M's rows are φ's channels
+            m = hilo(torch.bmm(p.transpose(1, 2), gg).transpose(1, 2))
+            return torch.bmm(torch.cat([t, t], -1), m.transpose(1, 2)) / n
+        s = hilo(torch.bmm(t, p.transpose(1, 2)))  # (θφᵀ)g
+        return torch.bmm(s, torch.cat([gg, gg], 1)) / n
     if impl != "naive" or n <= NAIVE_MAX_N:
         return dot_nonlocal_attention(theta, phi, g, impl=impl)
     t, p, gg = (x.double() for x in (theta, phi, g))
     return (torch.bmm(t, torch.bmm(p.transpose(1, 2), gg)) / n).float()
 
 
+@contextlib.contextmanager
+def exact_bias_sums(torch, model):
+    """Within: for each conv of ``model`` computing in bfloat16 whose bias
+    has fewer than ``EXACT_BIAS_ELEMENTS`` elements, the float64 sum of
+    its output's cotangent over every call with a gradient (the bias
+    gradient before autograd rounds it): ``{"<module>.bias": (C,)
+    float64}``, filled by the backward."""
+    sums, patched = {}, []
+    for name, m in model.named_modules():
+        if not (isinstance(m, torch.nn.modules.conv._ConvNd)
+                and getattr(m, "compute_dtype", None) == torch.bfloat16
+                and m.bias is not None
+                and m.bias.numel() < EXACT_BIAS_ELEMENTS):
+            continue
+
+        def forward(x, m=m, key=f"{name}.bias"):
+            y = type(m).forward(m, x)
+            if y.requires_grad:
+                dims = [0] + list(range(2, y.dim()))
+
+                def add(dy):
+                    s = dy.double().sum(dims)
+                    sums[key] = sums[key] + s if key in sums else s
+                y.register_hook(add)
+            return y
+        m.forward = forward
+        patched.append(m)
+    try:
+        yield sums
+    finally:
+        for m in patched:
+            del m.forward
+
+
 def _step_run(torch, cfg, trainer, model, batch, impl, sample=0):
     """One train step of ``model`` (SGD at lr 0: the weights stay) under
     the generator and dropout seed of (epoch 1, step ``sample``); the
-    attention in ``impl``. Returns (metrics, gradients)."""
+    attention in ``impl``. Returns (metrics, gradients); in bfloat16 the
+    heads' last conv biases are read as ``exact_bias_sums``, their rounded
+    gradients kept in the metrics' ``rounded_grads``."""
     from glfusion_tpu_torch.models import tpavi as tpavi_mod
     from glfusion_tpu_torch.train.step import make_train_step
 
@@ -1287,12 +1366,18 @@ def _step_run(torch, cfg, trainer, model, batch, impl, sample=0):
     tpavi_mod.dot_nonlocal_attention = plain_attention
     try:
         # the same step's generator and dropout seed for every path
-        with trainer.step_randomness(1, sample) as gen:
+        with exact_bias_sums(torch, model) as sums, \
+                trainer.step_randomness(1, sample) as gen:
             metrics = step(batch, gen)
         torch.cuda.synchronize()
     finally:
         tpavi_mod.dot_nonlocal_attention = saved
-    return {k: float(v.sum()) for k, v in metrics.items()}, _grads(model)
+    metrics = {k: float(v.sum()) for k, v in metrics.items()}
+    grads = _grads(model)
+    if sums:
+        metrics["rounded_grads"] = {n: grads[n] for n in sums}
+        grads.update(sums)
+    return metrics, grads
 
 
 def check_state(torch, model) -> dict:
@@ -1310,28 +1395,37 @@ def check_state(torch, model) -> dict:
     return state
 
 
-def step_paths(torch, cfg, trainer, batch, state, tol, sample=0) -> list:
+def step_paths(torch, cfg, trainer, batch, state, tol, sample=0,
+               model=None, stats=False) -> list:
     """The plain path and its second paths on ``state``: ``[(metrics,
     gradients)]``, the plain path first. The plain path is the fused
     stems' plain version on cuDNN and the naive attention; the second
     paths are equal in real arithmetic and differ in rounding:
     (tap by tap, reassociated), (tap by tap last to first, naive), (the
     fused stems' plain version, reassociated), the first
-    ``tol["noise_paths"]`` of them."""
+    ``tol["noise_paths"]`` of them. ``model``: the flagship to run them
+    in (default: a new one); ``stats``: each run also gives the BN running
+    statistics after its step."""
     from glfusion_tpu_torch.models import GlobalAndLocal
 
     PlainFusedStem, TapwiseStem, ReversedTapwiseStem = \
         _second_stem_classes(torch)
+    # in bfloat16 the last second path carries K1's hi/lo rounding
+    # (``plain_attention``'s "hilo")
     paths = [(PlainFusedStem, "naive"), (TapwiseStem, "reassoc"),
-             (ReversedTapwiseStem, "naive"), (PlainFusedStem, "reassoc")]
-    model = GlobalAndLocal(cfg.model).cuda()
+             (ReversedTapwiseStem, "naive"),
+             (PlainFusedStem, "hilo" if cfg.model.dtype == "bfloat16"
+              else "reassoc")]
+    model = (model or GlobalAndLocal(cfg.model)).cuda()
     runs = []
     for stem_cls, impl in paths[:1 + tol["noise_paths"]]:
         for v, stem in list(model.init_block.items()):
             model.init_block[v] = stem_cls(stem[0].out_channels).cuda()
         model.load_state_dict(state)
-        runs.append(_step_run(torch, cfg, trainer, model, batch, impl,
-                              sample))
+        run = _step_run(torch, cfg, trainer, model, batch, impl, sample)
+        if stats:
+            run += (_running(model.state_dict()),)
+        runs.append(run)
     del model
     torch.cuda.empty_cache()
     return runs
@@ -1358,8 +1452,8 @@ def kernel_recorder(torch):
                 y, tpavi_fused.fused_dot_nonlocal_plain(theta, phi, g))))
         return y
 
-    def stem_recorded(x, weight, bias, gamma, beta):
-        out, mean, var = stem_train(x, weight, bias, gamma, beta)
+    def stem_recorded(x, weight, bias, gamma, beta, axis=None):
+        out, mean, var = stem_train(x, weight, bias, gamma, beta, axis)
         call = {"inputs": [t.detach().clone() for t in
                            (x, weight, bias, gamma, beta)]}
         out.register_hook(lambda dy: call.__setitem__("dy", dy.detach()
@@ -1515,9 +1609,10 @@ def step_verdict(m_k, g_k, runs, tol) -> dict:
     construction are measured against their module's weight gradient: a
     conv bias before a train-mode BN (the stem conv, TPAVI's W_z conv),
     whose gradient cancels, and every tensor of fewer than
-    ``tol["small"]`` elements (the heads' last conv biases), whose
-    relative error would rest on a handful of numbers. ``worst_ratio`` is
-    the largest error over its allowance; the check fails above 1."""
+    ``tol["small"]`` elements (in float32 the heads' last conv biases),
+    whose relative error would rest on a handful of numbers.
+    ``worst_ratio`` is the largest error over its allowance; the check
+    fails above 1."""
     (m_p, g_p), seconds = runs[0], runs[1:]
     loss_err, loss_noise, bad = {}, {}, []
     for k in ("loss", "seg_loss", "cyc_loss"):
@@ -1561,7 +1656,8 @@ def step_verdict(m_k, g_k, runs, tol) -> dict:
             "plain_noise_max": max(noise.values()),
             "worst_ratio": max(ratio.values()),
             "worst_ratio_tensor": max(ratio, key=ratio.get),
-            "grad_err": grad_err, "noise": noise, "tol": tol}
+            "grad_err": grad_err, "noise": noise, "ratio": ratio,
+            "tol": tol}
 
 
 def fixed_check_sample(torch, trainer, sample: int = 0):
@@ -1610,7 +1706,7 @@ def step_agreement(torch, cfg, trainer, batch, tol=STEP_TOL,
     check(situ["ok"], f"step: a kernel call against its plain version on "
           f"the step's tensors: {situ['bad']}")
     return {**{k: v for k, v in res.items() if k not in ("grad_err",
-                                                         "noise")},
+                                                         "noise", "ratio")},
             "in_situ": situ}
 
 
@@ -2679,6 +2775,368 @@ def _regression(torch, cfg, paths, save_dir: Path, name: str) -> dict:
     return rec
 
 
+# mesh: two ranks share the one card over gloo (NCCL refuses two ranks on
+# one device), the full-width float32 flagship with K1 and the fused stems;
+# a global batch of MESH_BATCH frames a view and a clip of MESH_CLIP (the
+# cycle loss needs T >= 16 + 3 + 2, and 24 splits over two ranks); one step
+# each under (data 2), (model 2) and ``temporal`` at (data 2)
+MESH_BATCH, MESH_CLIP = 4, 24
+MESH_CASES = (("d2", 2, 1, {}), ("m2", 1, 2, {}),
+              ("temporal_d2", 2, 1, {"temporal": True}))
+# the weights after the step within this share of lr of torch Adam's first
+# update of the summed gradients (float32 rounding of that update: 1e-7)
+MESH_ADAM_GAP = 1e-4
+MESH_TIMEOUT_S = 420
+
+
+def _mesh_config(case_opts, root, data=-1, model=1):
+    """The mesh phase's flagship, its checkpoints and logs under ``root``."""
+    cfg = _flagship_config(**case_opts)
+    return cfg.replace(
+        data=dataclasses.replace(cfg.data, clip_length=MESH_CLIP),
+        train=dataclasses.replace(cfg.train, batch_size=MESH_BATCH,
+                                  mesh_data=data, mesh_model=model,
+                                  save_dir=f"{root}/ckpt",
+                                  log_dir=f"{root}/log"))
+
+
+_MESH_TEMPLATE: list = []
+
+
+def _mesh_model(torch, cfg, state=None):
+    """The flagship with fused stems holding ``state`` (None: seed 0's
+    initial weights): a copy of one template a process (its CPU init takes
+    seconds at full width)."""
+    from glfusion_tpu_torch.experiments.stem_module import swap_in_fused_stems
+    from glfusion_tpu_torch.models import GlobalAndLocal
+
+    if not _MESH_TEMPLATE:
+        torch.manual_seed(0)
+        _MESH_TEMPLATE.append(GlobalAndLocal(cfg.model))
+        swap_in_fused_stems(_MESH_TEMPLATE[0])
+    model = copy.deepcopy(_MESH_TEMPLATE[0])
+    if state is not None:
+        model.load_state_dict(state)
+    return model
+
+
+def _mesh_step(torch, trainer, batch):
+    """One step of ``trainer`` (its mesh) on ``batch`` under the draws of
+    (epoch 1, step 0): (metrics, whole gradients, whole state after, the
+    step's seconds), on the card. A collective on a mesh: every rank calls
+    it."""
+    from glfusion_tpu_torch.parallel.sharding import gather_many, param_dims
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with trainer.step_randomness(1, 0) as gen:
+        metrics = trainer.train_step(batch, gen)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    mesh, model = trainer.mesh, trainer.model
+    dims = param_dims(model)
+    named = list(model.named_parameters())
+    whole = gather_many([(p.grad, dims[id(p)][1]) for _, p in named
+                         if id(p) in dims], mesh.model_axis)
+    grads = {n: (whole.pop(0) if id(p) in dims else p.grad).detach()
+             .clone() for n, p in named}
+    state = {k: v.detach().clone()
+             for k, v in trainer.full_state_dict().items()}
+    return ({k: float(v.sum()) for k, v in metrics.items()}, grads, state,
+            step_s)
+
+
+def _running(state) -> dict:
+    """A state's BatchNorm running statistics."""
+    return {k: v.detach().clone() for k, v in state.items()
+            if ".running_" in k}
+
+
+def adam_first_step_gap(torch, before, grads, after, opt) -> tuple:
+    """The largest gap, over ``lr``, between each weight after the step and
+    torch Adam's first update of it from ``grads`` (L2 added first, no
+    moments yet), and its tensor. Adam's first step takes each element's
+    gradient sign, so where a gradient is rounding noise two runs' weights
+    differ by up to 2·lr however close their gradients; this checks that
+    the mesh's weights followed its own summed gradients."""
+    b1, b2 = opt.betas
+    worst, where = 0.0, None
+    for k, g in grads.items():
+        p0 = before[k].to(g.device).float()
+        g = g.float() + opt.weight_decay * p0
+        m, v = (1 - b1) * g, (1 - b2) * g * g
+        want = p0 - (opt.lr / (1 - b1)) * m / (
+            v.sqrt() / math.sqrt(1 - b2) + 1e-8)
+        gap = (after[k].float() - want).abs().max().item() / opt.lr
+        if gap >= worst:
+            worst, where = gap, k
+    return worst, where
+
+
+def _mesh_references(torch, cfg, trainer, batch, state) -> dict:
+    """One process's step on ``batch`` and ``state`` (no mesh, in this
+    rank): through the kernels, then the plain path and its second paths
+    (``step_paths``); each run's metrics, gradients and running
+    statistics."""
+    from glfusion_tpu_torch.ops import tpavi_fused
+
+    one = _mesh_model(torch, cfg, state).cuda()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    kernel = _step_run(torch, cfg, trainer, one, batch, "pallas")
+    step_s = time.perf_counter() - t0  # _step_run ends in a synchronize
+    peak = torch.cuda.max_memory_allocated()
+    kernel += (_running(one.state_dict()),)
+    del one
+    _free(torch)
+    launches = tpavi_fused.fused_dot_nonlocal.launches
+    plain = step_paths(torch, cfg, trainer, batch, state, STEP_TOL,
+                       model=_mesh_model(torch, cfg), stats=True)
+    check(tpavi_fused.fused_dot_nonlocal.launches == launches,
+          "mesh: a plain path launched K1")
+    return {"kernel": kernel, "plain": plain, "step_s": step_s,
+            "peak_bytes": peak}
+
+
+def mesh_rank(spec_path: str) -> None:
+    """One rank of the mesh phase (``python3 chip_smoke.py --mesh-rank
+    SPEC``, started by ``mesh_phase`` with the launcher's variables): each
+    case's step on a mesh over the two ranks; then rank 0 alone runs one
+    process's step on the same batch and state (no mesh) while rank 1
+    waits, holds the two and writes the verdicts."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from glfusion_tpu_torch.parallel.sharding import (check_replicas_equal,
+                                                      split_count)
+    from glfusion_tpu_torch.train.train_state import (load_payload,
+                                                      make_optimizer,
+                                                      make_scheduler,
+                                                      state_payload)
+    from glfusion_tpu_torch.train.trainer import Trainer
+    from glfusion_tpu_torch.utils.checkpoint import CheckpointManager
+    from glfusion_tpu_torch.utils.cluster import (barrier,
+                                                  initialize_distributed)
+
+    spec = json.loads(Path(spec_path).read_text())
+    t_start = time.perf_counter()
+    initialize_distributed(port=spec["port"])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    world = torch.distributed.get_world_size()
+    rank = torch.distributed.get_rank()
+    lead = rank == 0
+    base = _mesh_config({}, spec["work"])
+    _mesh_model(torch, base)  # the template
+    state = check_state(torch, _MESH_TEMPLATE[0])
+    lines, failures, refs, batch = [], [], {}, None
+    timing = {"start_s": time.perf_counter() - t_start}
+    for name, d, m, opts in MESH_CASES:
+        t0 = time.perf_counter()
+        cfg = _mesh_config(opts, f"{spec['work']}/{name}", d, m)
+        trainer = Trainer(cfg, data_paths=spec["data_paths"],
+                          model=_mesh_model(torch, cfg, state),
+                          verbose=False)
+        if batch is None:  # the global batch, the same on every rank
+            host = next(trainer.train_loader.batches(MESH_BATCH, 1))
+            with trainer.step_randomness(1, 0) as gen:
+                batch = trainer.train_batch(host, trainer._cycle_clips(1),
+                                            gen)
+        _free(torch)
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        with kernel_recorder(torch) as rec:
+            metrics, grads, after, step_s = _mesh_step(torch, trainer, batch)
+        counts = _counts(torch)  # before the replays launch the stems again
+        peak = torch.cuda.max_memory_allocated()
+        # every K1 call in situ; the stems' (replays of each call's
+        # backward, seconds a case) in the first case, where they are split
+        situ = in_situ_verdict(
+            {"k1": rec["k1"],
+             "stem": [stem_replay(torch, r) for r in rec["stem"]
+                      if "dy" in r and name == MESH_CASES[0][0]]}, STEP_TOL)
+        differ = check_replicas_equal(trainer.model, trainer.mesh)
+        mine = torch.tensor([counts[k] for k in sorted(counts)]
+                            + [peak, float(situ["ok"]), float(bool(differ))],
+                            dtype=torch.float64)
+        every = torch.zeros(world, mine.numel(), dtype=torch.float64)
+        every[rank] = mine
+        torch.distributed.all_reduce(every)
+        every = every.tolist()
+        n = len(counts)
+        saved = None
+        if name == "m2":  # saved under (1, 2), restored by one process
+            trainer.save(0)
+            trainer.ckpt.wait()
+            saved = state_payload(trainer.model, trainer.optimizer,
+                                  trainer.scheduler)
+        line = {"case": name, "mesh": trainer.mesh.shape,
+                "step_s": step_s, "case_s": None,
+                "peak_bytes_per_rank": [r[n] for r in every],
+                "launches_per_rank": [dict(zip(sorted(counts), r[:n]))
+                                      for r in every],
+                "split_leaves": split_count(trainer.model),
+                "in_situ_rank0": situ,
+                "replicated_leaves_equal": not any(r[n + 2] for r in every)}
+        if not all(r[n + 1] for r in every):
+            failures.append(f"mesh {name}: a kernel call against its plain "
+                            f"version in a rank: {situ['bad']}")
+        if not line["replicated_leaves_equal"]:
+            failures.append(f"mesh {name}: replicated leaves differ between "
+                            f"ranks: {differ}")
+        views = len(base.model.views)
+        for r, c in enumerate(line["launches_per_rank"]):
+            if not (c["fused_dot_nonlocal"] == 4 and all(
+                    c[k] == 2 * views for k in c
+                    if k != "fused_dot_nonlocal")):
+                failures.append(f"mesh {name}: rank {r} launches {c}")
+        del trainer
+        _free(torch)
+        barrier()
+        if lead:  # one process's step on the same batch and state
+            key = json.dumps(opts)
+            t1 = time.perf_counter()
+            if key not in refs:
+                refs[key] = _mesh_references(torch, cfg, trainer_like(
+                    cfg, spec), batch, state)
+            line["reference_s"] = time.perf_counter() - t1
+            ref = refs[key]
+            plain = [(mm, g) for mm, g, _ in ref["plain"]]
+            got = step_verdict(metrics, grads, plain, STEP_TOL)
+            one = step_verdict(ref["kernel"][0], ref["kernel"][1], plain,
+                               STEP_TOL)
+            stats = step_verdict(metrics, _running(after),
+                                 [(mm, st) for mm, _, st in ref["plain"]],
+                                 STEP_TOL)
+            gap = adam_first_step_gap(torch, state, grads, after, base.opt)
+            line.update({
+                "grad_ok": got["ok"], "grad_worst_ratio": got["worst_ratio"],
+                "grad_worst_tensor": got["worst_ratio_tensor"],
+                "grad_bad": got["bad"], "grad_n_bad": got["n_bad"],
+                "loss_rel_err": got["loss_rel_err"],
+                "one_process_step_s": ref["step_s"],
+                "one_process_peak_bytes": ref["peak_bytes"],
+                "one_process_worst_ratio": one["worst_ratio"],
+                "one_process_worst_tensor": one["worst_ratio_tensor"],
+                "plain_noise_max": got["plain_noise_max"],
+                "running_stats_ok": stats["ok"],
+                "running_stats_worst_ratio": stats["worst_ratio"],
+                "adam_update_gap_over_lr": gap})
+            if not got["ok"]:
+                failures.append(f"mesh {name}: the sharded step against "
+                                f"one process's plain path beyond its "
+                                f"second paths' noise: {got['bad']}")
+            if not stats["ok"]:
+                failures.append(f"mesh {name}: BN running statistics: "
+                                f"{stats['bad']}")
+            if not gap[0] <= MESH_ADAM_GAP:
+                failures.append(f"mesh {name}: the weights after the step "
+                                f"against Adam's update of the summed "
+                                f"gradients: {gap}")
+            if saved is not None:
+                ckpt = CheckpointManager(cfg.train.save_dir)
+                payload, _ = ckpt.restore_latest()
+                model = _mesh_model(torch, base).cuda()
+                opt = make_optimizer(base, model.parameters())
+                sched = make_scheduler(base, opt)
+                load_payload(payload, model, opt, sched)
+                diff = state_diff(torch, state_payload(model, opt, sched),
+                                  saved)
+                line["checkpoint_restored_bitwise"] = not diff
+                line["checkpoint_leaves"] = _leaves(saved)
+                if diff:
+                    failures.append(f"mesh: the (1, 2) checkpoint restored "
+                                    f"by one process differs at {diff[:5]}")
+                del model, opt, sched, payload
+            line["case_s"] = time.perf_counter() - t0
+            lines.append(line)
+        del grads, after, saved
+        _free(torch)
+        barrier()
+    timing["ranks_s"] = time.perf_counter() - t_start
+    if lead:
+        Path(spec["out"]).write_text(json.dumps(
+            {"lines": lines, "failures": failures, "timing": timing}))
+    barrier()
+    torch.distributed.destroy_process_group()
+
+
+def trainer_like(cfg, spec):
+    """What ``_step_run`` and ``step_paths`` read of a trainer: the step's
+    randomness (``Trainer.step_randomness``) on this rank's card."""
+    import types
+
+    import torch
+
+    from glfusion_tpu_torch.train.trainer import step_randomness
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    return types.SimpleNamespace(step_randomness=lambda e, s: step_randomness(
+        cfg.train.seed, e, s, dev))
+
+
+def mesh_phase(torch, data_paths) -> dict:
+    """Two ranks share the one card over gloo, through ``Trainer``'s
+    sharded path: each case's step held against one process's on the same
+    global batch and state, as the train phase holds the kernels' step
+    (``step_verdict``: the plain path, its second paths' noise); the BN
+    running statistics the same way; the weights against Adam's update of
+    the summed gradients; the replicated leaves bit for bit equal on both
+    ranks; K1 and the stem kernels launched on every rank and checked in
+    situ there; the (1, 2) checkpoint restored by one process bit for
+    bit. Returns the ranks' launches, summed."""
+    import socket
+
+    t0 = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_"))
+    _free(torch)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    spec = {"port": port, "out": str(tmp / "out.json"),
+            "work": str(tmp / "ranks"), "data_paths": data_paths}
+    (tmp / "spec.json").write_text(json.dumps(spec))
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("PMI_", "OMPI_"))}
+    env.update(PMI_SIZE="2", MASTER_ADDR="127.0.0.1")
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-rank",
+         str(tmp / "spec.json")], env={**env, "PMI_RANK": str(r)},
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(2)]
+    errs = []
+    try:
+        for r, proc in enumerate(procs):
+            try:
+                _, err = proc.communicate(
+                    timeout=max(1.0, MESH_TIMEOUT_S
+                                - (time.perf_counter() - t0)))
+            except subprocess.TimeoutExpired:
+                errs.append(f"rank {r} did not end in {MESH_TIMEOUT_S} s")
+                continue
+            if proc.returncode != 0:
+                errs.append(f"rank {r} exited {proc.returncode}: "
+                            f"{err[-4000:]}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    check(not errs, "mesh: " + " | ".join(errs))
+    got = json.loads(Path(spec["out"]).read_text())
+    for line in got["lines"]:
+        emit("mesh", **line)
+    emit("mesh_seconds", **got["timing"], total_s=time.perf_counter() - t0,
+         nvidia_smi=nvidia_smi_line(), backend="gloo, two ranks on one card")
+    check(not got["failures"], " | ".join(got["failures"]))
+    check(len(got["lines"]) == len(MESH_CASES), "mesh: cases missing")
+    shutil.rmtree(tmp, ignore_errors=True)
+    launches = [c for line in got["lines"]
+                for c in line["launches_per_rank"]]
+    return {k: int(sum(c[k] for c in launches)) for k in launches[0]}
+
+
 def _du(path: Path) -> int:
     return sum(p.stat().st_size for p in path.rglob("*") if p.is_file())
 
@@ -3138,6 +3596,7 @@ def main() -> None:
         ("temporal", temporal_phase), ("cps", cps_phase),
         ("checkify", checkify_phase), ("train_bf16", train_bf16_phase),
         ("lifecycle", lifecycle_phase), ("variants", variants_phase))]
+    more.append(timed("mesh", mesh_phase, paths))
     timed("zoo", zoo_phase, paths)  # runs no kernel (asserted)
     timed("regression", regression_phase)  # runs no kernel (asserted)
     emit("seconds", **seconds, total=sum(seconds.values()))
@@ -3206,4 +3665,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--mesh-rank"]:  # a rank of the mesh phase
+        mesh_rank(sys.argv[2])
+    else:
+        main()

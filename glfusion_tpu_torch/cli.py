@@ -14,6 +14,16 @@ without it a machine with no CUDA raises. SIGTERM stops a training run at
 the next epoch boundary with that epoch checkpointed; ``--resume``
 continues it.
 
+Multi-process runs: under an MPI-style launcher (``PMI_SIZE``/``PMI_RANK``
+or ``OMPI_COMM_WORLD_SIZE``/``OMPI_COMM_WORLD_RANK``; ``MASTER_ADDR`` on
+more than one node) every process joins one ``torch.distributed`` group
+before anything touches the card (``utils/cluster.py``), one card a
+process, and the trainers run on a (data, model) mesh over the processes
+(``--mesh-model`` sets the model axis, data takes the rest; ``parallel/``).
+Only rank 0 prints, logs and writes. ``--mode serve`` and the HTTP
+endpoint refuse a multi-process run, as JAX's do; ``--mode export``, which
+traces one process's forward, does too.
+
 TF32 policy: in float32 the CLI turns TF32 off for cuBLAS and cuDNN, so
 "float32" is IEEE float32, as in the JAX package's tests, on the CPU and in
 every figure measured on the card; bfloat16 leaves PyTorch's settings as
@@ -115,6 +125,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "(exact big-batch gradient under the sum-reduction "
                         "loss; cycle clip once per update — see "
                         "TrainConfig.grad_accum)")
+    p.add_argument("--mesh-model", type=int, default=1,
+                   help="model-parallel mesh axis size")
     p.add_argument("--save-dir", default="./result/ckpt")
     p.add_argument("--log-dir", default="./result/log_info/log_01")
     p.add_argument("--resume", action="store_true",
@@ -231,6 +243,7 @@ def config_from_args(args: argparse.Namespace) -> Config:
             ckpt_keep=args.ckpt_keep,
             log_histograms=args.log_histograms,
             checkify=args.checkify,
+            mesh_model=args.mesh_model,
         ),
     )
 
@@ -287,6 +300,7 @@ def _run_regression(args: argparse.Namespace, cfg: Config,
 
     from glfusion_tpu_torch.models.registry import build_reg_model
     from glfusion_tpu_torch.train.regression import RegressionTrainer
+    from glfusion_tpu_torch.utils.cluster import barrier
 
     if args.torch_ckpt is not None or args.imagenet_backbone is not None:
         raise SystemExit("error: --torch-ckpt and --imagenet-backbone load "
@@ -300,8 +314,7 @@ def _run_regression(args: argparse.Namespace, cfg: Config,
         tmp = tempfile.mkdtemp(prefix="glfusion_torch_synth_")
         data_paths = generate_synthetic_dataset(
             tmp, cfg.data, views=cfg.model.views, seed=cfg.train.seed)
-        print(f"[glfusion_torch] synthetic dataset generated under {tmp}",
-              flush=True)
+        say(f"[glfusion_torch] synthetic dataset generated under {tmp}")
     torch.manual_seed(cfg.train.seed)  # the initial weights
     model, adapter = build_reg_model(
         args.reg_model, cfg.model.num_views, dtype=cfg.model.dtype,
@@ -312,33 +325,47 @@ def _run_regression(args: argparse.Namespace, cfg: Config,
     tc = cfg.train
     if args.mode == "reg-train":
         if args.resume and trainer.load_latest():
-            print(f"[glfusion_torch] resumed at epoch {trainer.epoch}",
-                  flush=True)
+            say(f"[glfusion_torch] resumed at epoch {trainer.epoch}")
         for epoch in range(trainer.epoch, tc.num_epochs):
             m = trainer.train_epoch(epoch)
-            print(f"[glfusion_torch] reg epoch {epoch}: loss="
-                  f"{m['loss']:.4f} ({m['steps']} steps)", flush=True)
+            say(f"[glfusion_torch] reg epoch {epoch}: loss="
+                f"{m['loss']:.4f} ({m['steps']} steps)")
             if ((tc.save_every_epochs > 0
                  and (epoch + 1) % tc.save_every_epochs == 0)
                     or epoch == tc.num_epochs - 1):
                 trainer.save(epoch)
         trainer.ckpt.wait()
+        barrier()
     elif trainer.load_latest():  # reg-val scores the newest checkpoint
-        print("[glfusion_torch] reg-val: scoring the checkpoint of epoch "
-              f"{trainer.epoch - 1}", flush=True)
+        say("[glfusion_torch] reg-val: scoring the checkpoint of epoch "
+            f"{trainer.epoch - 1}")
     else:
-        print("[glfusion_torch] reg-val: no checkpoint found under "
-              f"{tc.save_dir}; evaluating fresh init", flush=True)
+        say("[glfusion_torch] reg-val: no checkpoint found under "
+            f"{tc.save_dir}; evaluating fresh init")
     metrics = trainer.evaluate()
     # strict JSON: a NaN or inf score (diverged weights) becomes null
     metrics = {k: (v if math.isfinite(v) else None)
                for k, v in metrics.items()}
-    print(json.dumps({"label": args.label_type, **metrics}))
+    say(json.dumps({"label": args.label_type, **metrics}))
     return 0
+
+
+def say(msg: str) -> None:
+    """Print on rank 0 only (every rank of a multi-process run computes)."""
+    from glfusion_tpu_torch.utils.cluster import get_global_rank
+
+    if get_global_rank() == 0:
+        print(msg, flush=True)
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    # multi-process bring-up BEFORE any use of the card: under an MPI-style
+    # launcher every process joins the process group on its own card (JAX
+    # cli.py:311). No-op for ordinary single-process runs.
+    from glfusion_tpu_torch.utils.cluster import initialize_distributed
+
+    initialize_distributed(cpu=args.platform == "cpu")
     if args.debug_nans:
         from glfusion_tpu_torch.utils.debug import debug_nans
 
@@ -357,6 +384,11 @@ def _main(args: argparse.Namespace) -> int:
     if args.imagenet_backbone is not None and args.torch_ckpt is not None:
         raise SystemExit("error: --imagenet-backbone is an initialization; "
                          "--torch-ckpt loads a full checkpoint — pick one")
+    from glfusion_tpu_torch.utils.cluster import get_world_size
+
+    if args.mode == "export" and get_world_size() > 1:
+        raise SystemExit("error: --mode export traces one process's "
+                         "forward; run it as a single process")
 
     from glfusion_tpu_torch.train.trainer import Trainer
 
@@ -395,10 +427,10 @@ def _main(args: argparse.Namespace) -> int:
             trainer.validation_and_test()
     elif args.mode == "visual":
         n = trainer.test_visualize(method_name=args.method_name)
-        print(f"wrote {n} prediction frames")
+        say(f"wrote {n} prediction frames")
     elif args.mode == "infer":
         n = trainer.infer(out_dir=args.out_dir)
-        print(f"wrote {n} prediction volumes")
+        say(f"wrote {n} prediction volumes")
     elif args.mode == "export":
         from glfusion_tpu_torch.utils.model_export import (
             export_serving_forward, save_exported)

@@ -110,8 +110,9 @@ class OptConfig:
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """Training loop. The port takes every field but the mesh's, which are
-    kept so one configuration describes both packages."""
+    """Training loop. ``mesh_data`` × ``mesh_model`` is the (data, model)
+    mesh over the run's processes (``parallel/mesh.py``; -1: every process
+    that ``mesh_model`` leaves)."""
 
     batch_size: int = 8
     num_epochs: int = 100

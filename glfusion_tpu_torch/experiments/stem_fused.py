@@ -62,11 +62,18 @@ def _pool(h: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return F.max_pool2d(h, kernel_size=3, stride=2, padding=1).to(dtype)
 
 
-def fused_stem_train_plain(x, weight, bias, gamma, beta):
+def fused_stem_train_plain(x, weight, bias, gamma, beta, axis=None):
     """conv → BN on batch statistics → ReLU → maxpool, differentiable by
     autograd. Returns (pooled in x's type, batch mean, biased batch
-    variance); the statistics carry no gradient."""
+    variance); the statistics carry no gradient. ``axis``: the batch is
+    split over it, and the statistics are the global batch's (the
+    cross-rank BatchNorm's)."""
     z = _conv(x, weight, bias)
+    if axis is not None and axis.size > 1:
+        from glfusion_tpu_torch.parallel.norm import sync_batch_norm
+        y, mean, var = sync_batch_norm(z, gamma.float(), beta.float(), EPS,
+                                       axis)
+        return _pool(F.relu(y), x.dtype), mean, var
     with torch.no_grad():
         var, mean = torch.var_mean(z, dim=(0, 2, 3), unbiased=False)
     h = F.relu(F.batch_norm(z, None, None, gamma.float(), beta.float(),
@@ -320,18 +327,30 @@ def batch_moments(part: torch.Tensor):
 
 
 class _FusedStemTrain(torch.autograd.Function):
+    """The four kernels as one trainable function. Over a batch split
+    between ranks (``axis``) the per-block partials of ``stem_stats`` and
+    of ``stem_bwd1`` are gathered along their batch axis, in rank order,
+    between the launches: every rank then merges one process's partials
+    of the global batch, so the moments have its bits. The kernels do not
+    change. Σdn and Σdn·x̂ feed ``stem_bwd2`` whole; the scale and shift
+    gradients returned are this rank's own sums (the step sums gradients
+    over the ranks)."""
+
     @staticmethod
-    def forward(ctx, x, weight, bias, gamma, beta):
+    def forward(ctx, x, weight, bias, gamma, beta, axis):
         c = weight.shape[0]
         x = x.contiguous()
         w49 = weight.float().reshape(c, 49).contiguous()
-        mean, var = batch_moments(stem_stats(x, w49, _chan(c, x.device,
-                                                           bias)))
+        part = stem_stats(x, w49, _chan(c, x.device, bias))
+        if axis is not None:
+            part = axis.gather_(part, 1)
+        mean, var = batch_moments(part)
         inv = torch.rsqrt(var + EPS)
         a = gamma.float() * inv
         out = stem_norm_pool(x, w49, _chan(c, x.device, bias, a, beta,
                                            mean))
         ctx.save_for_backward(x, w49, bias, gamma, beta, mean, inv, a)
+        ctx.axis = axis
         ctx.mark_non_differentiable(mean, var)
         return out, mean, var
 
@@ -350,24 +369,33 @@ class _FusedStemTrain(torch.autograd.Function):
         dbeta = part[0].sum((0, 1))
         dgamma = part[1].sum((0, 1))
         n = b * hc * wc
-        chan = _chan(c, x.device, bias, a, beta, mean, inv, dbeta / n,
-                     dgamma / n)
+        edn, ednx = dbeta, dgamma
+        if ctx.axis is not None:
+            whole = ctx.axis.gather_(part, 1)
+            edn, ednx = whole[0].sum((0, 1)), whole[1].sum((0, 1))
+            n *= ctx.axis.size
+        chan = _chan(c, x.device, bias, a, beta, mean, inv, edn / n,
+                     ednx / n)
         dwp, dbp, dxp = stem_bwd2(x, w49, chan, dy)
         dx = stem_dx_reduce(dxp, h)
         dweight = dwp.sum((0, 1)).reshape(c, 1, 7, 7)
         return (dx.to(x.dtype).unsqueeze(1), dweight, dbp.sum((0, 1)),
-                dgamma.to(gamma.dtype), dbeta)
+                dgamma.to(gamma.dtype), dbeta, None)
 
 
-def fused_stem_train(x, weight, bias, gamma, beta):
+def fused_stem_train(x, weight, bias, gamma, beta, axis=None):
     """Training-mode stem. x (B, 1, H, W), weight (C, 1, 7, 7), bias, gamma,
     beta (C,). Returns (pooled (B, C, hp, wp) in x's type, batch mean,
     biased batch variance); the caller updates the running statistics.
-    CPU tensors take :func:`fused_stem_train_plain`."""
+    ``axis`` (``parallel.collectives.Axis``): the batch is split over its
+    ranks and the statistics are the global batch's. CPU tensors take
+    :func:`fused_stem_train_plain`."""
+    if axis is not None and axis.size == 1:
+        axis = None
     if x.device.type == "cpu":
-        return fused_stem_train_plain(x, weight, bias, gamma, beta)
+        return fused_stem_train_plain(x, weight, bias, gamma, beta, axis)
     _check(x, weight)
-    return _FusedStemTrain.apply(x, weight, bias, gamma, beta)
+    return _FusedStemTrain.apply(x, weight, bias, gamma, beta, axis)
 
 
 def fused_stem_eval(x, weight, bias, gamma, beta, running_mean, running_var):

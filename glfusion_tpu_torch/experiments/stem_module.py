@@ -9,7 +9,9 @@ no change. Swapping it in is the caller's act, as in the JAX package's
 in-model A/B; no configuration flag selects it.
 
 Running statistics follow ``nn.BatchNorm2d``: momentum 0.1, the unbiased
-batch variance, ``num_batches_tracked`` counted.
+batch variance, ``num_batches_tracked`` counted. In a sharded run (its BN
+swapped for ``parallel.norm.SyncBatchNorm``) the statistics are the global
+batch's (``fused_stem_train``'s ``axis``, the pass's batch axis).
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ import torch.nn as nn
 
 from glfusion_tpu_torch.experiments.stem_fused import (fused_stem_eval,
                                                        fused_stem_train)
+from glfusion_tpu_torch.parallel import context
+from glfusion_tpu_torch.parallel.norm import SyncBatchNorm, update_running
 
 
 class FusedIEKDStem(nn.Sequential):
@@ -32,18 +36,19 @@ class FusedIEKDStem(nn.Sequential):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         conv, bn = self[0], self[1]
+        sync = isinstance(bn, SyncBatchNorm)  # a sharded run's
         if not self.training:
+            rm, rv = (bn.running_stats() if sync
+                      else (bn.running_mean, bn.running_var))
             return fused_stem_eval(x, conv.weight, conv.bias, bn.weight,
-                                   bn.bias, bn.running_mean, bn.running_var)
+                                   bn.bias, rm, rv)
+        axis = context.batch_axis()
         out, mean, var = fused_stem_train(x, conv.weight, conv.bias,
-                                          bn.weight, bn.bias)
-        with torch.no_grad():
-            n = x.shape[0] * (x.shape[2] - 2) * (x.shape[3] - 2)
-            m = bn.momentum
-            bn.running_mean.mul_(1 - m).add_(mean, alpha=m)
-            bn.running_var.mul_(1 - m).add_(var * (n / max(n - 1, 1)),
-                                            alpha=m)
-            bn.num_batches_tracked.add_(1)
+                                          bn.weight, bn.bias, axis)
+        n = x.shape[0] * (x.shape[2] - 2) * (x.shape[3] - 2) * axis.size
+        bn.num_batches_tracked.add_(1)
+        update_running(bn.running_mean, bn.running_var, mean, var, n,
+                       bn.momentum, bn.stat_axis if sync else None)
         return out
 
 

@@ -129,7 +129,12 @@ def serve_http(trainer, host: str = "127.0.0.1", port: int = 8000,
     """CLI entry: build the pipeline (live weights or a saved export) and
     serve until interrupted."""
     from glfusion_tpu_torch.serve import ClipPipeline, export_pipeline_kwargs
+    from glfusion_tpu_torch.utils.cluster import get_world_size
 
+    if get_world_size() > 1:
+        raise ValueError(
+            "HTTP serving is a single-controller path; run one server "
+            "per host")
     cfg = trainer.cfg
     # the batch path's checks: a views or class-count mismatch is a
     # start-up error, not an opaque 500 on every request

@@ -186,7 +186,8 @@ class GlobalAndLocal(nn.Module):
         if not is_video:
             return attn(y)
         b, v, h, w, c = y.shape
-        return attn(y.reshape(1, b * v, h, w, c)).reshape(b, v, h, w, c)
+        return attn(y.reshape(1, b * v, h, w, c),
+                    frames_split=True).reshape(b, v, h, w, c)
 
     @staticmethod
     def _stacked(feats: List[torch.Tensor]) -> torch.Tensor:

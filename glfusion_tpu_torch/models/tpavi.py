@@ -39,6 +39,17 @@ hand-written CUDA kernel (``ops/tpavi_fused.py``); any other value goes to
 the products take the operands' type (JAX's einsums, no
 ``preferred_element_type``); ``concatenate``'s W_f, a flax ``Dense``
 without a type, returns float32.
+
+A sharded run (``parallel/``): with ``frames_split`` (a clip's frames
+folded into the token axis, ``temporal``) the tokens are this rank's
+frames of a clip split over the pass's batch axis
+(``parallel.context.batch_axis()``). The attention's operands are then
+gathered along the tokens, the attention runs once over all of them (the
+kernel too, whole) and each rank keeps its own rows of y. Backward, the
+rows' cotangents are gathered, every rank differentiates the whole
+attention as one process does and keeps its own tokens' gradients.
+``W_z``'s BatchNorm, swapped for the cross-rank one, normalizes over every
+rank's rows.
 """
 
 from __future__ import annotations
@@ -50,6 +61,9 @@ import torch.nn.functional as F
 from glfusion_tpu_torch.models.precision import linear
 from glfusion_tpu_torch.ops.nonlocal_attn import dot_nonlocal_attention
 from glfusion_tpu_torch.ops.tpavi_fused import fused_dot_nonlocal
+from glfusion_tpu_torch.parallel import context
+from glfusion_tpu_torch.parallel.collectives import gather, own_rows
+from glfusion_tpu_torch.parallel.norm import SyncBatchNorm
 
 
 def _linear(conv: nn.Conv3d, x: torch.Tensor,
@@ -104,21 +118,33 @@ class TPAVI(nn.Module):
             return fused_dot_nonlocal(theta, phi, g)
         return dot_nonlocal_attention(theta, phi, g, impl=self.attn_impl)
 
-    def forward(self, x: torch.Tensor, kv: torch.Tensor | None = None
-                ) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, kv: torch.Tensor | None = None,
+                frames_split: bool = False) -> torch.Tensor:
         """x: (B, V, H, W, C) → (B, V, H, W, C).
 
         kv: optional same-shape volume supplying the φ keys (cross-view
-        attention); defaults to self-attention.
+        attention); defaults to self-attention. ``frames_split``: the
+        token axis holds this rank's frames of a clip split over the pass's
+        batch axis (module docstring).
         """
         b, v, h, w, c = x.shape
         n = v * h * w
         dt = self.dtype
         tokens = x.reshape(b, n, c)
         kv_tokens = tokens if kv is None else kv.reshape(b, n, c)
+        axis = context.batch_axis() if frames_split else None
+        if axis is not None and axis.size == 1:
+            axis = None
+
+        def whole(*ts):  # every rank's tokens, in rank (frame) order
+            if axis is None:
+                return ts
+            return tuple(gather(t, axis, 1) for t in ts)
+
         if self.mode == "gaussian":
             g = _linear(self.g, tokens, dt)
-            f = torch.matmul(tokens, kv_tokens.transpose(1, 2))
+            q, k, g = whole(tokens, kv_tokens, g)
+            f = torch.matmul(q, k.transpose(1, 2))
             y = torch.matmul(torch.softmax(f, dim=-1), g)
         else:
             if kv is None and not self.training:
@@ -135,16 +161,22 @@ class TPAVI(nn.Module):
                 theta = _linear(self.theta, tokens, dt)
                 phi = _linear(self.phi, kv_tokens, dt)
                 g = _linear(self.g, tokens, dt)
-            y = self._attention(theta, phi, g)
+            y = self._attention(*whole(theta, phi, g))
+        if axis is not None:
+            y = own_rows(y, axis, 1)
 
         conv, bn = self.W_z
         wy = _linear(conv, y, dt).reshape(b * n, c)
-        if self.training and bn.num_batches_tracked is not None:
-            bn.num_batches_tracked.add_(1)
         # BatchNorm3d over (B, C, V, H, W) normalizes each channel over
         # B·V·H·W, i.e. over the rows of the token matrix.
-        wy = F.batch_norm(wy, bn.running_mean, bn.running_var, bn.weight,
-                          bn.bias, self.training, bn.momentum, bn.eps)
+        if isinstance(bn, SyncBatchNorm):
+            wy = bn(wy)
+        else:
+            if self.training and bn.num_batches_tracked is not None:
+                bn.num_batches_tracked.add_(1)
+            wy = F.batch_norm(wy, bn.running_mean, bn.running_var,
+                              bn.weight, bn.bias, self.training,
+                              bn.momentum, bn.eps)
         z = wy.reshape(b, n, c) + tokens
         if dt == torch.float32:
             z = self.norm_layer(z)

@@ -50,6 +50,8 @@ def resolve_device(device=None) -> torch.device:
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {dev} requested but CUDA is not available")
+    if dev.type == "cuda" and dev.index is None:  # this process's card
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 
@@ -267,6 +269,17 @@ def serve_test_clips(trainer, out_dir: str = "./predictions",
     """
     from pathlib import Path
 
+    from glfusion_tpu_torch.utils.cluster import get_world_size
+
+    if get_world_size() > 1:
+        # The pipeline stages clips onto this process's card and writes
+        # each mask whole: a per-process path that cannot see another
+        # process's shards. Serving scales by replica, not by sharding one
+        # stream across processes.
+        raise ValueError(
+            "--mode serve is a single-controller path; in a multi-process "
+            "run serve one replica per host, or use --mode infer (which "
+            "assembles process-spanning shards)")
     cfg = trainer.cfg
     if from_export is None:
         pipe = ClipPipeline(cfg, trainer.model, depth=depth, threads=threads,

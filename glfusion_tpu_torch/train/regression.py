@@ -18,11 +18,17 @@ does:
     ``net_*.pth`` + ``state_*.pth`` pairs, written in the background;
   * ``evaluate()`` scores the val split: MSE, MAE, RMSE and R².
 
-Deviations from JAX, by design: one device (JAX shards the batch over a
-data-parallel mesh; the port's multi-device path is ROADMAP Queue 1, item
-4); no ``--torch-ckpt`` (no reference checkpoint exists for these models, and
-JAX's converter maps none); the BatchNorms' running variance takes torch's
-unbiased update where flax's takes the biased one (ROADMAP Queue 3).
+On a mesh (``parallel/``) each rank runs its slice of the batch's axis 0
+(JAX ``regression.py:163``), or the whole batch where ``data`` does not
+divide it (counted once); the loss is then Σ(pred − target)² over the
+rank's slice over the global batch size, so the gradients summed over
+``data`` are the global mean's. Only the lead rank writes checkpoints;
+``evaluate()`` gathers every rank's predictions.
+
+Deviations from JAX, by design: no ``--torch-ckpt`` (no reference
+checkpoint exists for these models, and JAX's converter maps none); the
+BatchNorms' running variance takes torch's unbiased update where flax's
+takes the biased one (ROADMAP Queue 3).
 """
 
 from __future__ import annotations
@@ -39,6 +45,10 @@ from glfusion_tpu_torch.data.pipeline import (RegressionClipLoader,
                                               preprocess_regression_batch)
 from glfusion_tpu_torch.data.prefetch import prefetch
 from glfusion_tpu_torch.models.registry import _views_to_channels
+from glfusion_tpu_torch.parallel import context
+from glfusion_tpu_torch.parallel.mesh import Mesh, make_mesh
+from glfusion_tpu_torch.parallel.sharding import (reduce_gradients,
+                                                  shard_batch, shard_module)
 from glfusion_tpu_torch.serve import resolve_device
 from glfusion_tpu_torch.train.train_state import (load_payload,
                                                   make_optimizer,
@@ -47,6 +57,7 @@ from glfusion_tpu_torch.train.train_state import (load_payload,
                                                   zero_fill_grads)
 from glfusion_tpu_torch.train.trainer import step_randomness, to_device
 from glfusion_tpu_torch.utils.checkpoint import CheckpointManager
+from glfusion_tpu_torch.utils.cluster import barrier
 from glfusion_tpu_torch.utils.scores import mae, mse, r2, rmse
 
 
@@ -56,31 +67,54 @@ def _prediction(out) -> torch.Tensor:
 
 
 def make_regression_train_step(model: torch.nn.Module,
-                               optimizer: torch.optim.Optimizer) -> Callable:
+                               optimizer: torch.optim.Optimizer,
+                               mesh: Mesh | None = None) -> Callable:
     """``step(batch) → {'loss', 'pred'}`` (device tensors, detached): one
     MSE update of ``model`` in train mode; ``batch`` holds ``clips`` (the
-    model's input) and ``targets`` (B,)."""
+    model's input) and ``targets`` (B,), the global batch on every rank of
+    ``mesh``; ``pred`` is this rank's slice's."""
+    mesh = mesh or Mesh()
+    data = mesh.data_axis
+    params = [p for g in optimizer.param_groups for p in g["params"]]
 
     def step(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         model.train()
         optimizer.zero_grad(set_to_none=True)
-        pred = _prediction(model(batch["clips"]))
-        loss = torch.mean((pred - batch["targets"]) ** 2)
-        loss.backward()
+        n = batch["targets"].shape[0]
+        split = mesh.divides(n)
+        local = shard_batch(batch, mesh, batch_axis=0)
+        clips, targets = local["clips"], local["targets"]
+        with context.split_pass(data if split else None):
+            pred = _prediction(model(clips))
+            # the global batch's mean: this rank's rows summed over n
+            loss = ((pred - targets) ** 2).sum() / n
+            weight = 1.0 if split or data.index == 0 else 0.0
+            (loss * weight).backward()
         zero_fill_grads(optimizer)
+        reduce_gradients(params, model, mesh)
+        loss = loss.detach()
+        if data.size > 1:
+            loss = data.all_reduce_(loss * weight)
         optimizer.step()
-        return {"loss": loss.detach(), "pred": pred.detach()}
+        return {"loss": loss, "pred": pred.detach()}
 
     return step
 
 
-def make_regression_eval_step(model: torch.nn.Module) -> Callable:
-    """``step(batch) → pred`` (B,): the eval-mode forward."""
+def make_regression_eval_step(model: torch.nn.Module,
+                              mesh: Mesh | None = None) -> Callable:
+    """``step(batch) → pred`` (B,): the eval-mode forward of the global
+    batch (on a mesh each rank's slice, gathered)."""
+    mesh = mesh or Mesh()
 
     @torch.inference_mode()
     def step(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         model.eval()
-        return _prediction(model(batch["clips"]))
+        clips = batch["clips"]
+        if not mesh.divides(clips.shape[0]):
+            return _prediction(model(clips))
+        pred = _prediction(model(mesh.data_axis.own(clips, 0)))
+        return mesh.data_axis.gather_(pred.contiguous(), 0)
 
     return step
 
@@ -107,6 +141,8 @@ class RegressionTrainer:
                  input_adapter: Optional[Callable] = None, device=None):
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.mesh = make_mesh(data=cfg.train.mesh_data,
+                              model=cfg.train.mesh_model)
         self._input_adapter = input_adapter or _views_to_channels
 
         index = PatientIndex.from_infos(load_infos(data_paths["infos"]),
@@ -119,15 +155,16 @@ class RegressionTrainer:
             for split, is_train in (("train_list.npy", True),
                                     ("val_list.npy", False)))
 
-        self.model = model.to(self.device)
+        self.model = shard_module(model.to(self.device), self.mesh)
         # JAX's schedule counts steps in epochs of this many
         self.steps_per_epoch = max(
             len(self.train_loader) // cfg.train.batch_size, 1)
         self.optimizer = make_optimizer(cfg, self.model.parameters())
         self.scheduler = make_scheduler(cfg, self.optimizer)
         self.train_step = make_regression_train_step(self.model,
-                                                     self.optimizer)
-        self.eval_step = make_regression_eval_step(self.model)
+                                                     self.optimizer,
+                                                     self.mesh)
+        self.eval_step = make_regression_eval_step(self.model, self.mesh)
         self.ckpt = CheckpointManager(cfg.train.save_dir,
                                       max_to_keep=cfg.train.ckpt_keep)
         self.epoch = 0
@@ -161,11 +198,13 @@ class RegressionTrainer:
 
     def save(self, epoch: int, wait: bool = False) -> None:
         """Checkpoint the whole train state as ``epoch`` (in the background
-        unless ``wait``)."""
-        self.ckpt.save(state_payload(self.model, self.optimizer,
-                                     self.scheduler), epoch)
+        unless ``wait``). Every rank calls it; the lead rank writes."""
+        payload = state_payload(self.model, self.optimizer, self.scheduler)
+        if self.mesh.lead:
+            self.ckpt.save(payload, epoch)
         if wait:
             self.ckpt.wait()
+            barrier()
 
     def load_latest(self) -> bool:
         """Restore the newest checkpoint (weights, BN statistics, Adam, the

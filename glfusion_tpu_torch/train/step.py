@@ -39,11 +39,27 @@ The options of the JAX step (``config.TrainConfig``), with its exclusions:
   reads the last one at the epoch's end), so no step waits for its own:
   the two numbers are copied to pinned host memory behind an event, which
   the next step's call waits on after it has enqueued its own work.
+
+On a mesh (``parallel/``; JAX's GSPMD step, written out) every rank gets
+the whole global batch and runs its slice of each pass's batch axis
+(stacked views and clips alike: axis 1), inside
+``parallel.context.split_pass`` so the BatchNorms take the global batch's
+moments. A microbatch of ``grad_accum`` is the global batch's contiguous
+microbatch, split the same way. The cycle loss gathers the (V, T, C)
+feature sums of every rank's frames and is computed once on each rank (its
+gather's backward keeps each rank's own frames). A pass whose batch axis
+``data`` does not divide runs whole on every rank and counts once: on the
+data group's first rank, the others' losses weighted 0. After the
+backward the gradients are summed over ``data`` (``sharding.
+reduce_gradients``: the loss is a sum over the global batch, so a sum,
+not a mean); the metrics too. ``checkify``'s norm is taken after that,
+each split leaf's slices summed over ``model``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 from typing import Callable, Dict
 
@@ -51,6 +67,11 @@ import torch
 
 from glfusion_tpu_torch.config import Config
 from glfusion_tpu_torch.models.resnet import no_remat
+from glfusion_tpu_torch.parallel import context
+from glfusion_tpu_torch.parallel.collectives import gather
+from glfusion_tpu_torch.parallel.mesh import Mesh
+from glfusion_tpu_torch.parallel.sharding import (global_grad_norm,
+                                                  reduce_gradients)
 from glfusion_tpu_torch.train.losses import (bce_with_logits_sum,
                                              dense_seg_cycle_loss,
                                              seg_cycle_loss)
@@ -91,9 +112,12 @@ def _check_supported(cfg: Config, cps: bool) -> None:
 
 def cycle_loss(cfg: Config, f4_global: torch.Tensor,
                generator: torch.Generator) -> torch.Tensor:
-    """Σ over views of the cycle loss on (V, T, h, w, C) features."""
+    """Σ over views of the cycle loss on (V, T, h, w, C) features. In a
+    pass whose frames are split between ranks the (V, T, C) sums of every
+    rank are gathered in frame order, and each rank computes the whole
+    loss."""
     tc = cfg.train
-    feat = f4_global.sum(dim=(2, 3))  # (V, T, C)
+    feat = gather(f4_global.sum(dim=(2, 3)), context.batch_axis(), 1)
     kw = dict(target_region=tc.cycle_target_region, cyc_off=tc.cycle_offset,
               chunk=tc.cycle_chunk, temperature=tc.cycle_temperature)
     total = torch.zeros((), device=feat.device)  # float32, as in JAX
@@ -114,11 +138,8 @@ class FinitenessCheck:
     def __init__(self):
         self.pending = []
 
-    def record(self, loss: torch.Tensor, grads) -> None:
-        vals = torch.stack([
-            loss.detach().float(),
-            torch.nn.utils.get_total_norm(
-                [g.float() for g in grads]).float()])
+    def record(self, loss: torch.Tensor, gnorm: torch.Tensor) -> None:
+        vals = torch.stack([loss.detach().float(), gnorm.float()])
         event = None
         if vals.is_cuda:
             host = torch.empty(2, dtype=torch.float32, pin_memory=True)
@@ -145,15 +166,60 @@ class FinitenessCheck:
             raise RuntimeError(f"non-finite gradient norm {gnorm}")
 
 
+def _pass_tools(mesh: Mesh):
+    """The mesh's per-pass helpers: ``split_of(*ns)`` (the data axis when it
+    divides every batch axis of a pass, else None), ``local(x, axis)``
+    (this rank's slice of axis 1) and ``weight(axis)`` (1, or for a
+    replicated pass 1 on the data group's first rank and 0 elsewhere, so
+    the pass counts once in the sums over ``data``)."""
+    data = mesh.data_axis
+    once = 1.0 if data.index == 0 else 0.0
+
+    def split_of(*ns):
+        return data if all(mesh.divides(n) for n in ns) else None
+
+    def local(x, axis):
+        return x if axis is None else data.own(x, 1)
+
+    def weight(axis):
+        return 1.0 if axis is not None else once
+
+    return split_of, local, weight
+
+
+def _sum_over(axis, tensors: Dict[str, torch.Tensor]) -> Dict:
+    """Each tensor summed over ``axis`` (one all-reduce)."""
+    if axis.size == 1:
+        return tensors
+    keys = list(tensors)
+    dt = functools.reduce(torch.promote_types,
+                          (tensors[k].dtype for k in keys), torch.float32)
+    flat = torch.cat([tensors[k].to(dt).reshape(-1) for k in keys])
+    axis.all_reduce_(flat)
+    out, offset = {}, 0
+    for k in keys:
+        t = tensors[k]
+        out[k] = flat[offset:offset + t.numel()].view_as(t).to(t.dtype)
+        offset += t.numel()
+    return out
+
+
+def _weighted_counts(logits, masks, weight, dim) -> Dict[str, torch.Tensor]:
+    counts = confusion_counts((logits > 0.0).float(), masks, dim=dim)
+    return {k: v * weight for k, v in counts.items()}
+
+
 def make_train_step(cfg: Config, model: torch.nn.Module,
                     optimizer: torch.optim.Optimizer,
-                    cps: bool = False) -> Callable:
+                    cps: bool = False, mesh: Mesh | None = None) -> Callable:
     """``train_step(batch, generator) -> metrics`` (tensors on the device).
 
     batch: images (V, B·grad_accum, H, W, 1), masks (V, B·grad_accum, H, W,
-    5) and, when the cycle loss is on, clips (V, T, H, W, 1). The generator
-    draws the sampled cycle starts. Metrics: loss, seg_loss, cyc_loss and
-    per-view confusion counts tp/fp/fn/tn (V,). ``cps``: ``model`` is the
+    5) and, when the cycle loss is on, clips (V, T, H, W, 1): the global
+    batch, on every rank of ``mesh`` (module docstring). The generator
+    draws the sampled cycle starts (the same on every rank). Metrics, of
+    the global batch: loss, seg_loss, cyc_loss and per-view confusion
+    counts tp/fp/fn/tn (V,). ``cps``: ``model`` is the
     ``GlobalAndLocalCPS`` twin. ``train_step.seg_loss(out, masks)`` is the
     step's supervised loss of a forward's output. With
     ``cfg.train.checkify`` the step has a ``checkify_flush()`` that raises
@@ -165,6 +231,9 @@ def make_train_step(cfg: Config, model: torch.nn.Module,
     accum = int(tc.grad_accum)
     twin = cfg.model.remat and not tc.remat_supervised
     checker = FinitenessCheck() if tc.checkify else None
+    mesh = mesh or Mesh()
+    split_of, local, weight = _pass_tools(mesh)
+    params = [p for g in optimizer.param_groups for p in g["params"]]
 
     def seg_loss(out, masks):
         """Σ over the test views of the BCE-sum, of the mask and of every
@@ -189,6 +258,10 @@ def make_train_step(cfg: Config, model: torch.nn.Module,
                                               pseudo1[vi]))
         return loss + tc.cps_weight * cps_loss
 
+    def counts_of(logits, masks, w):
+        return _weighted_counts(logits, masks, w,
+                                tuple(range(1, logits.dim())))
+
     def train_step(batch: Dict[str, torch.Tensor],
                    generator: torch.Generator) -> Dict[str, torch.Tensor]:
         model.train()
@@ -196,49 +269,62 @@ def make_train_step(cfg: Config, model: torch.nn.Module,
         images, masks = batch["images"], batch["masks"]
         clips = batch.get("clips") if tc.use_cycle else None
         cyc = torch.zeros((), device=masks.device)
+        seg = torch.zeros((), device=masks.device)
+        counts = None
         if tc.fuse_passes and clips is not None:
-            out = model(torch.cat([images, clips.to(images.dtype)], dim=1),
-                        sup_count=images.shape[1])
-            seg = seg_loss(out, masks)
-            cyc = cycle_loss(cfg, out["f4_global"], generator)
-            (seg + tc.cycle_weight * cyc).backward()
-            mask_logits = out["mask"].detach()
+            axis = split_of(images.shape[1], clips.shape[1])
+            im, mk, cl = (local(t, axis) for t in (images, masks, clips))
+            w = weight(axis)
+            with context.split_pass(axis):
+                out = model(torch.cat([im, cl.to(im.dtype)], dim=1),
+                            sup_count=im.shape[1])
+                s = seg_loss(out, mk)
+                cyc = cycle_loss(cfg, out["f4_global"], generator)
+                ((s + tc.cycle_weight * cyc) * w).backward()
+            seg = s.detach() * w
+            counts = counts_of(out["mask"].detach(), mk, w)
+            del out
         else:
             n = images.shape[1]
             if n % accum:
                 raise ValueError(f"batch of {n} frames/view does not divide "
                                  f"into grad_accum={accum} microbatches")
             mb = n // accum
-            seg, logits = torch.zeros((), device=masks.device), []
+            axis = split_of(mb)
+            w = weight(axis)
             for a in range(accum):
                 part = slice(a * mb, (a + 1) * mb)
-                with no_remat(model) if twin else contextlib.nullcontext():
-                    out = model(images[:, part])
-                s = seg_loss(out, masks[:, part])
-                s.backward()
-                seg = seg + s.detach()
-                logits.append(out["mask"].detach())
+                mk = local(masks[:, part], axis)
+                with context.split_pass(axis):
+                    with no_remat(model) if twin else contextlib.nullcontext():
+                        out = model(local(images[:, part], axis))
+                    s = seg_loss(out, mk)
+                    (s * w).backward()
+                seg = seg + s.detach() * w
+                c = counts_of(out["mask"].detach(), mk, w)
+                counts = c if counts is None else {k: counts[k] + c[k]
+                                                   for k in c}
                 del out
-            mask_logits = torch.cat(logits, dim=1)
             if clips is not None:
                 light = {"features_only": True} if tc.cycle_light else {}
                 if tc.temporal:
                     light["is_video"] = True
-                out2 = model(clips, **light)
-                cyc = cycle_loss(cfg, out2["f4_global"], generator)
-                (tc.cycle_weight * cyc).backward()
+                axis = split_of(clips.shape[1])
+                with context.split_pass(axis):
+                    out2 = model(local(clips, axis), **light)
+                    cyc = cycle_loss(cfg, out2["f4_global"], generator)
+                    (tc.cycle_weight * cyc * weight(axis)).backward()
                 del out2
-        seg, cyc = seg.detach(), cyc.detach()
-        total = seg + tc.cycle_weight * cyc
         zero_fill_grads(optimizer)
+        reduce_gradients(params, model, mesh)
+        # the global batch's sums (the cycle loss is whole on every rank)
+        sums = _sum_over(mesh.data_axis, {"seg_loss": seg, **counts})
+        seg, cyc = sums.pop("seg_loss"), cyc.detach()
+        total = seg + tc.cycle_weight * cyc
         if checker is not None:
-            checker.record(total, [p.grad for p in model.parameters()
-                                   if p.grad is not None])
+            checker.record(total, global_grad_norm(params, model, mesh))
         optimizer.step()
-        with torch.no_grad():
-            counts = confusion_counts((mask_logits > 0.0).float(), masks,
-                                      dim=tuple(range(1, mask_logits.dim())))
-        return {"loss": total, "seg_loss": seg, "cyc_loss": cyc, **counts}
+        return {"loss": total, "seg_loss": seg, "cyc_loss": cyc, **sums}
 
     train_step.seg_loss = seg_loss  # the supervised loss of (out, masks)
     if checker is not None:
@@ -246,25 +332,48 @@ def make_train_step(cfg: Config, model: torch.nn.Module,
     return train_step
 
 
-def make_eval_step(cfg: Config, model: torch.nn.Module) -> Callable:
+def make_eval_step(cfg: Config, model: torch.nn.Module,
+                   mesh: Mesh | None = None) -> Callable:
     """``eval_step(batch) -> {loss, counts, part_counts, logits}``: the fused
     mask's BCE-sum over the test views, per-view confusion counts (V,) and
-    per-view, per-structure counts (V, 5)."""
+    per-view, per-structure counts (V, 5), of the global batch. On a mesh
+    each rank takes its slice of the batch's axis 1 (or the whole, where
+    ``data`` does not divide it) and the loss and counts are summed over
+    ``data``; ``logits`` are this rank's (:func:`whole_logits`)."""
     test_idx = supervised_view_indices(cfg)
+    mesh = mesh or Mesh()
+    split_of, local, weight = _pass_tools(mesh)
 
     @torch.no_grad()
     def eval_step(batch: Dict[str, torch.Tensor]) -> Dict:
         model.eval()
-        logits = model(batch["images"])["mask"]  # (V, B, H, W, 5)
-        masks = batch["masks"]
+        axis = split_of(batch["images"].shape[1])
+        w = weight(axis)
+        logits = model(local(batch["images"], axis))["mask"]  # (V, B, ...)
+        masks = local(batch["masks"], axis)
         loss = sum(bce_with_logits_sum(logits[vi], masks[vi])
                    for vi in test_idx)
-        pred = (logits > 0.0).float()
-        counts = confusion_counts(pred, masks,
-                                  dim=tuple(range(1, logits.dim())))
-        part_counts = confusion_counts(pred, masks,
-                                       dim=tuple(range(1, logits.dim() - 1)))
-        return {"loss": loss, "counts": counts, "part_counts": part_counts,
+        counts = _weighted_counts(logits, masks, w,
+                                  tuple(range(1, logits.dim())))
+        part_counts = _weighted_counts(logits, masks, w,
+                                       tuple(range(1, logits.dim() - 1)))
+        sums = _sum_over(mesh.data_axis, {
+            "loss": loss if w == 1.0 else loss * w,
+            **{f"c_{k}": v for k, v in counts.items()},
+            **{f"p_{k}": v for k, v in part_counts.items()}})
+        return {"loss": sums["loss"],
+                "counts": {k: sums[f"c_{k}"] for k in counts},
+                "part_counts": {k: sums[f"p_{k}"] for k in part_counts},
                 "logits": logits}
 
     return eval_step
+
+
+def whole_logits(logits: torch.Tensor, frames: int,
+                 mesh: Mesh | None) -> torch.Tensor:
+    """The global batch's (V, B, ...) logits from each rank's ``eval_step``
+    logits of a batch of ``frames`` (a collective where the batch was
+    split; JAX's ``_fetch``)."""
+    if mesh is None or not mesh.divides(frames):
+        return logits
+    return mesh.data_axis.gather_(logits.contiguous(), 1)

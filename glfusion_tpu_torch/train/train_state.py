@@ -22,6 +22,10 @@ from typing import Iterable
 import torch
 
 from glfusion_tpu_torch.config import Config
+from glfusion_tpu_torch.parallel.sharding import (shard_optimizer_state,
+                                                  shard_state_dict,
+                                                  unshard_optimizer_state,
+                                                  unshard_state_dict)
 
 
 def cosine_factor(epoch: int, t_max: int) -> float:
@@ -66,17 +70,21 @@ def make_scheduler(cfg: Config, optimizer: torch.optim.Optimizer
 def state_payload(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                   scheduler: torch.optim.lr_scheduler.LRScheduler) -> dict:
     """The training state a checkpoint holds (live tensors: the checkpoint
-    manager snapshots them)."""
-    return {"network": model.state_dict(),
-            "optimizer": optimizer.state_dict(),
+    manager snapshots them). For a sharded model the leaves split over
+    ``model`` and their Adam moments are gathered whole, so the files are
+    the same whatever the mesh (then a collective: every rank calls it)."""
+    return {"network": unshard_state_dict(model),
+            "optimizer": unshard_optimizer_state(optimizer, model),
             "scheduler": scheduler.state_dict()}
 
 
 def load_payload(payload: dict, model: torch.nn.Module,
                  optimizer: torch.optim.Optimizer,
                  scheduler: torch.optim.lr_scheduler.LRScheduler) -> None:
-    """Put a checkpoint's state back. The ``LambdaLR`` keeps its lambda (a
-    function is not saved) and takes the saved epoch and learning rates."""
-    model.load_state_dict(payload["network"])
-    optimizer.load_state_dict(payload["optimizer"])
+    """Put a checkpoint's state back (whole tensors; each rank of a sharded
+    model keeps its slices). The ``LambdaLR`` keeps its lambda (a function
+    is not saved) and takes the saved epoch and learning rates."""
+    model.load_state_dict(shard_state_dict(payload["network"], model))
+    optimizer.load_state_dict(shard_optimizer_state(payload["optimizer"],
+                                                    optimizer, model))
     scheduler.load_state_dict(payload["scheduler"])

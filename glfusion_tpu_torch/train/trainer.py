@@ -15,6 +15,14 @@ JAX CLI reads through ``--torch-ckpt``) and a sidecar with Adam's state and
 the schedule's epoch. They are written in the background; ``train()``
 flushes them before it returns, also when it raises.
 
+On a mesh (``cfg.train.mesh_data`` × ``mesh_model`` ranks; ``parallel/``)
+every rank builds the same model from the seed and keeps its slices
+(``parallel.shard_module``), decodes the whole host batch and runs its
+slice of it (``train/step.py``). Only the lead rank (global rank 0) logs,
+writes metrics, TensorBoard, checkpoints, PNGs and masks; every rank takes
+part in the gathers that come before a write. Checkpoints hold whole
+tensors whatever the mesh, and restore under any other.
+
 Randomness is a pure function of (seed, epoch, step), as in JAX
 (``trainer.py:136-148``, ``:327-329``): each step seeds its own generator
 (the crops and the sampled cycle starts) and the global RNG (ASPP dropout),
@@ -46,14 +54,19 @@ from glfusion_tpu_torch.data.pipeline import (AlignedClipLoader, ByteLRU,
 from glfusion_tpu_torch.data.prefetch import prefetch
 from glfusion_tpu_torch.models import GlobalAndLocalCPS, build_model
 from glfusion_tpu_torch.models.glfusion import HEADS_IN_CYCLE
+from glfusion_tpu_torch.parallel import make_mesh, shard_module
+from glfusion_tpu_torch.parallel.sharding import (shard_state_dict,
+                                                  unshard_state_dict)
 from glfusion_tpu_torch.serve import resolve_device
 from glfusion_tpu_torch.train.metrics import overlap_metrics
-from glfusion_tpu_torch.train.step import make_eval_step, make_train_step
+from glfusion_tpu_torch.train.step import (make_eval_step, make_train_step,
+                                           whole_logits)
 from glfusion_tpu_torch.train.train_state import (load_payload,
                                                   make_optimizer,
                                                   make_scheduler,
                                                   state_payload)
 from glfusion_tpu_torch.utils.checkpoint import CheckpointManager
+from glfusion_tpu_torch.utils.cluster import barrier
 from glfusion_tpu_torch.utils.convert import MIXES, load_checkpoint
 from glfusion_tpu_torch.utils.summary import SummaryWriter
 
@@ -117,7 +130,8 @@ class Trainer:
     device: None → CUDA (raises without it); ``"cpu"`` runs on the CPU.
     model: an already built model of ``cfg.model`` to train (for instance
         the flagship with fused stems swapped in); None builds it
-        (``models.build_model``, the registry).
+        (``models.build_model``, the registry). On a mesh it is sharded in
+        place (every rank must pass the same weights).
     """
 
     def __init__(self, cfg: Config, data_paths: Optional[Dict[str, str]] = None,
@@ -126,6 +140,9 @@ class Trainer:
         self.cfg = cfg
         self.verbose = verbose
         self.device = resolve_device(device)
+        self.mesh = make_mesh(data=cfg.train.mesh_data,
+                              model=cfg.train.mesh_model)
+        self._lead = self.mesh.lead
         torch.manual_seed(cfg.train.seed)  # the initial weights
 
         if data_paths is None:
@@ -161,7 +178,7 @@ class Trainer:
             model, self.cps = build_model(cfg.model, hw=cfg.data.crop_hw)
         else:
             self.cps = isinstance(model, GlobalAndLocalCPS)
-        self.model = model.to(self.device)
+        self.model = shard_module(model.to(self.device), self.mesh)
         self._check_options()
         # one update takes batch_size·grad_accum frames a view
         self.update_frames = cfg.train.batch_size * cfg.train.grad_accum
@@ -170,17 +187,19 @@ class Trainer:
         self.optimizer = make_optimizer(cfg, self.model.parameters())
         self.scheduler = make_scheduler(cfg, self.optimizer)
         self.train_step = make_train_step(cfg, self.model, self.optimizer,
-                                          cps=self.cps)
-        self.eval_step = make_eval_step(cfg, self.model)
+                                          cps=self.cps, mesh=self.mesh)
+        self.eval_step = make_eval_step(cfg, self.model, mesh=self.mesh)
         self.ckpt = CheckpointManager(cfg.train.save_dir,
                                       max_to_keep=cfg.train.ckpt_keep)
         self._eval_clip_cache = ByteLRU(1 << 30)
         self.epoch = 0
         self._stop_requested = False
         log_dir = Path(cfg.train.log_dir)
-        log_dir.mkdir(parents=True, exist_ok=True)
         self._metrics_path = log_dir / "metrics.jsonl"
-        self.summary = SummaryWriter(str(log_dir))
+        self.summary = None
+        if self._lead:  # one writer
+            log_dir.mkdir(parents=True, exist_ok=True)
+            self.summary = SummaryWriter(str(log_dir))
 
     def _check_options(self) -> None:
         """JAX's exclusions (``trainer.py:84-104``): of a zoo arch, of the
@@ -215,15 +234,30 @@ class Trainer:
         so a signal handler may call it (the CLI's SIGTERM hook)."""
         self._stop_requested = True
 
+    def _stop_agreed(self) -> bool:
+        """Whether any rank was asked to stop. Each rank's signal handler
+        sets its own flag, and ``save`` and the loop's end are collectives,
+        so every rank stops after the same epoch."""
+        flag = torch.tensor([float(self._stop_requested)],
+                            device=self.device)
+        return self.mesh.world_axis.all_reduce_(flag).item() > 0
+
     def checkpoint_path(self, epoch: int) -> Path:
         """The reference's ``net_{epoch:05}.pth`` of one saved epoch."""
         return self.ckpt.paths(epoch)[0]
 
     def save(self, epoch: int) -> None:
         """Checkpoint the whole training state as ``epoch``, in the
-        background (``self.ckpt.wait()`` flushes)."""
-        self.ckpt.save(state_payload(self.model, self.optimizer,
-                                     self.scheduler), epoch)
+        background (``self.ckpt.wait()`` flushes). Every rank calls it (the
+        split leaves are gathered); the lead rank writes."""
+        payload = state_payload(self.model, self.optimizer, self.scheduler)
+        if self._lead:
+            self.ckpt.save(payload, epoch)
+
+    def full_state_dict(self) -> Dict[str, torch.Tensor]:
+        """The model's state dict with whole tensors (a collective on a
+        mesh)."""
+        return unshard_state_dict(self.model)
 
     def load_latest(self) -> bool:
         """Restore the newest complete checkpoint: weights, BN statistics,
@@ -267,7 +301,8 @@ class Trainer:
         if missing:
             raise KeyError(f"{path} has no {missing[0]!r} ({len(missing)} "
                            "of the model's entries missing)")
-        self.model.load_state_dict({k: sd[k] for k in want})
+        self.model.load_state_dict(shard_state_dict(
+            {k: sd[k] for k in want}, self.model))
         self._log(f"loaded torch checkpoint {path}")
 
     def load_imagenet_backbone(self, path: str) -> None:
@@ -283,8 +318,8 @@ class Trainer:
             load_imagenet_backbone, merge_backbone)
 
         conv = load_imagenet_backbone(path, self.cfg.model)
-        self.model.load_state_dict(merge_backbone(self.model.state_dict(),
-                                                  conv))
+        self.model.load_state_dict(shard_state_dict(
+            merge_backbone(self.full_state_dict(), conv), self.model))
         self._log(f"initialized backbone from ImageNet weights {path}")
 
     # -------------------------------------------------------------- training
@@ -314,19 +349,23 @@ class Trainer:
                     self.validation_and_test()
                 saved = (cfg.train.save_every_epochs > 0
                          and (epoch + 1) % cfg.train.save_every_epochs == 0)
-                if saved or self._stop_requested:
+                stop = self._stop_agreed()
+                if saved or stop:
                     self.save(epoch)  # asynchronous; flushed below
                 self.epoch = epoch + 1
-                if self._stop_requested:
+                if stop:
                     self._log(f"stop requested: checkpointed epoch {epoch}, "
                               "exiting")
                     break
+            self.ckpt.wait()
+            barrier()  # the lead's files are in place for every rank
         finally:
             self.train_loader.stop_warming()
             # the last checkpoint is in place when train() ends, also when
             # an exception (out of memory, Ctrl-C) leaves the loop
             self.ckpt.wait()
-            self.summary.flush()
+            if self.summary is not None:
+                self.summary.flush()
         return last
 
     def step_randomness(self, epoch: int, step: int):
@@ -533,7 +572,8 @@ class Trainer:
                 payload = self.ckpt.restore_step(step, train_state=False)
                 if payload is None:
                     continue
-                self.model.load_state_dict(payload["network"])
+                self.model.load_state_dict(shard_state_dict(
+                    payload["network"], self.model))
                 self.epoch = step
                 res = self.validation_and_test()
                 val = res.get("Inner-val", {}).get("views", {})
@@ -563,18 +603,23 @@ class Trainer:
         for clip in prefetch(loader.clips()):
             batch = {"images": self._to_device(clip["images"]),
                      "masks": self._to_device(clip["masks"])}
-            yield clip["clip_id"], self.eval_step(batch)["logits"]
+            logits = self.eval_step(batch)["logits"]
+            yield clip["clip_id"], whole_logits(
+                logits, batch["images"].shape[1], self.mesh)
 
     def test_visualize(self, method_name: str = "glfusion_tpu_torch",
                        out_dir: str = "./visualze_for_ppt") -> int:
         """Write colorized prediction PNGs of every test clip
         (reference ``main.py:546-648``):
         ``<out>/<method>/192_data/<patient>/<view>/pred_<t>.png``. Returns
-        the number of PNGs written."""
+        the number of PNGs written (by the lead rank; 0 on the others, which
+        take part in the gathers)."""
         from glfusion_tpu_torch.utils.visualize import save_clip_visualization
 
         written = 0
         for cid, logits in self._test_clip_logits():
+            if not self._lead:
+                continue
             for vi, view in enumerate(self.cfg.model.views):
                 written += save_clip_visualization(out_dir, method_name, cid,
                                                    view, logits[vi])
@@ -585,13 +630,17 @@ class Trainer:
         """Predict every test clip and write its masks as NIfTI:
         ``pred_<clip>_v<view>.nii.gz``, (5, H, W, T) uint8 (the
         ``Test_Seg_PAHDataset`` label layout), logit > 0 as the threshold.
-        Returns the number of files written."""
+        Returns the number of files written (by the lead rank; 0 on the
+        others)."""
         from glfusion_tpu_torch.data.nifti import write_nifti
 
         out = Path(out_dir)
-        out.mkdir(parents=True, exist_ok=True)
+        if self._lead:
+            out.mkdir(parents=True, exist_ok=True)
         written = 0
         for cid, logits in self._test_clip_logits():
+            if not self._lead:
+                continue
             pred = (logits > 0.0).to(torch.uint8).cpu().numpy()
             for vi, view in enumerate(self.cfg.model.views):
                 # (T, H, W, 5) → (5, H, W, T)
@@ -605,19 +654,24 @@ class Trainer:
 
     def _log_param_histograms(self, epoch: int) -> None:
         """One TensorBoard histogram a parameter (``--log-histograms``, the
-        reference's optional pass, ``main.py:252-255``)."""
-        if not self.summary.active:
+        reference's optional pass, ``main.py:252-255``). Every rank takes
+        part in gathering the split leaves; the lead rank writes."""
+        names = [n for n, _ in self.model.named_parameters()]
+        full = self.full_state_dict()
+        if self.summary is None or not self.summary.active:
             return
-        for name, p in self.model.named_parameters():
+        for name in names:
             self.summary.add_histogram(f"params/{name}",
-                                       p.detach().float().cpu().numpy(),
-                                       epoch)
+                                       full[name].detach().float().cpu()
+                                       .numpy(), epoch)
 
     def _log(self, msg: str) -> None:
-        if self.verbose:
+        if self.verbose and self._lead:
             print(f"[glfusion_torch] {msg}", flush=True)
 
     def _write_log(self, record: dict) -> None:
+        if not self._lead:
+            return
         with open(self._metrics_path, "a") as f:
             f.write(json.dumps(record) + "\n")
         # numeric fields mirrored to TensorBoard (reference main.py:874-883)

@@ -1,5 +1,6 @@
-"""How often ``chip_smoke.py``'s float32 step check fails, and whether it
-still fails a broken kernel.
+"""How often ``chip_smoke.py``'s step check fails, and whether it still
+fails a broken kernel: the float32 check, or with ``--bf16`` the
+``train_bf16`` phase's.
 
 Runs the step check of the checkout at ``--root`` (default: this one) on
 the card, on ``--samples`` samples, recording each verdict instead of
@@ -26,7 +27,20 @@ raising. Two forms, told apart by the checkout's ``chip_smoke.py``:
   of epoch 1 + i under the draws of (epoch 1, step i).
 
     python3 tools/torch_step_check_rate.py [--root DIR] [--samples N] \\
-        [--controls] [--out FILE]
+        [--controls] [--bf16] [--out FILE]
+
+``--bf16``: the checkout's ``train_bf16`` phase alone (its plain step's
+epoch, then its step check, bfloat16 with remat, ``STEP_TOL_BF16``),
+``--samples`` times on the train phase's synthetic corpus, each verdict
+recorded instead of raised. Where the checkout reads the heads' last
+conv biases before their rounding (``exact_bias_sums``), each line also
+gives the verdict of the same runs on the rounded gradients, under the
+earlier rule (two second paths: ``parent_rule``) and with three
+(``three_paths_rounded``); for every one-element gradient (the
+centerness heads' biases) and the worst tensor, the kernels' relative
+error and each second path's (``paths``; rounded: ``paths_rounded``);
+and the one-element gradients where the kernels differ from the plain
+path and every second path reads 0 (``zero_noise``).
 
 One JSON line per sample goes to ``--out`` (appended) and a short one to
 standard output; the last line is the summary.
@@ -98,6 +112,34 @@ class Controls:
         self.stem_fused.stem_bwd2 = self.bwd2
 
 
+def rounded(run) -> tuple:
+    """(metrics, gradients) of a run with the heads' rounded bias
+    gradients in place of their exact sums."""
+    return run[0], {**run[1], **run[0].get("rounded_grads", {})}
+
+
+def zero_noise(errors) -> list:
+    """The tensors of ``path_errors`` where the kernels differ from the
+    plain path and every second path reads 0."""
+    return [n for n, e in errors.items() if e[0] > 0 and max(e[1:]) == 0]
+
+
+def path_errors(runs, g_k, res) -> dict:
+    """Tensor → [the kernels' relative error, then each second path's],
+    against the plain path, for the worst tensor and every one-element
+    gradient."""
+    g_p = runs[0][1]
+    names = {res["worst_ratio_tensor"]} | {n for n, g in g_p.items()
+                                           if g.numel() == 1}
+
+    def err(g, n):
+        den = g_p[n].norm().item()
+        return (g[n] - g_p[n]).norm().item() / den if den else math.inf
+
+    return {n: [err(g_k, n)] + [err(g, n) for _, g in runs[1:]]
+            for n in sorted(names)}
+
+
 def fixed_state(torch, cs, args, smi, log):
     """This checkout's check on fixed samples, with the controls."""
     from glfusion_tpu_torch.experiments.stem_module import swap_in_fused_stems
@@ -138,6 +180,61 @@ def fixed_state(torch, cs, args, smi, log):
         line["seconds"] = time.perf_counter() - t0
         log(line)
         del runs, batch, state
+        torch.cuda.empty_cache()
+
+
+def bf16_phase(torch, cs, args, smi, log):
+    """The checkout's ``train_bf16`` phase alone, its plain step only (the
+    one with the check), ``args.samples`` times."""
+    import tempfile
+
+    from glfusion_tpu_torch.data.synthetic import generate_synthetic_dataset
+
+    cfg = cs._flagship_config()
+    paths = generate_synthetic_dataset(tempfile.mkdtemp(), cfg.data,
+                                       views=cfg.model.views,
+                                       seed=cfg.train.seed)
+    cs.BF16_VARIANTS = (("plain", {}),)
+    verdict, raise_check = cs.step_verdict, cs.check
+    for i in range(args.samples):
+        seen, failed = [], []
+
+        def recorded(m_k, g_k, runs, tol):
+            res = verdict(m_k, g_k, runs, tol)
+            # the same runs on the rounded gradients: the earlier rule
+            # (two second paths, the first two here), and three
+            r_k, r_runs = rounded((m_k, g_k)), [rounded(r) for r in runs]
+            parent = verdict(*r_k, r_runs[:3], {**tol, "noise_paths": 2})
+            three = verdict(*r_k, r_runs, tol)
+            seen.append((res, parent, three, path_errors(runs, g_k, res),
+                         path_errors(r_runs, r_k[1], res)))
+            return res
+
+        cs.step_verdict = recorded
+        cs.check = lambda ok, msg: failed.append(msg) if not ok else None
+        t0 = time.perf_counter()
+        try:
+            cs.train_bf16_phase(torch, paths)
+        finally:
+            cs.step_verdict, cs.check = verdict, raise_check
+        res, parent, three, paths_err, paths_rounded = seen[-1]
+
+        def brief(r):
+            return {"ok": r["ok"], "worst_ratio": r["worst_ratio"],
+                    "worst_ratio_tensor": r["worst_ratio_tensor"],
+                    "bad": r["bad"]}
+        log({"sample": i, "form": "bf16_phase", "tol": res["tol"],
+             "none": {"ok": not failed, "worst_ratio": res["worst_ratio"],
+                      "worst_ratio_tensor": res["worst_ratio_tensor"],
+                      "bad": [m[:400] for m in failed],
+                      "loss_rel_err": res["loss_rel_err"],
+                      "loss_plain_noise": res["loss_plain_noise"]},
+             "parent_rule": brief(parent),
+             "three_paths_rounded": brief(three),
+             "paths": paths_err, "paths_rounded": paths_rounded,
+             "zero_noise": {"exact": zero_noise(paths_err),
+                            "rounded": zero_noise(paths_rounded)},
+             "seconds": time.perf_counter() - t0})
         torch.cuda.empty_cache()
 
 
@@ -188,6 +285,8 @@ def main() -> None:
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
     ap.add_argument("--samples", type=int, default=24)
     ap.add_argument("--controls", action="store_true")
+    ap.add_argument("--bf16", action="store_true",
+                    help="the train_bf16 phase alone, its step check")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     root = Path(args.root).resolve()
@@ -217,14 +316,27 @@ def main() -> None:
                 f.write(json.dumps(line) + "\n")
         print(json.dumps({k: line[k] for k in ("sample", "form")} | {
             k: (line[k]["ok"], round(line[k]["worst_ratio"], 4))
-            for k in ("none", "k1_scale", "bwd2_tap") if k in line}),
+            for k in ("none", "parent_rule", "three_paths_rounded",
+                      "k1_scale", "bwd2_tap")
+            if k in line}),
             flush=True)
 
     form = fixed_state if hasattr(cs, "step_paths") else trained_state
+    if args.bf16:
+        form = bf16_phase
     form(torch, cs, args, smi, log)
     summary = {"root": str(root), "form": form.__name__,
+               "dtype": "bfloat16" if args.bf16 else "float32",
                "samples": len(lines), "nvidia_smi": smi}
-    for name in ("none", "k1_scale", "bwd2_tap"):
+    if args.bf16:
+        summary["zero_noise"] = {
+            k: sum(len(x["zero_noise"][k]) for x in lines)
+            for k in ("exact", "rounded")}
+        summary["one_element_readings"] = sum(
+            len([n for n in x["paths"] if n.startswith("centerness")])
+            for x in lines)
+    for name in ("none", "parent_rule", "three_paths_rounded", "k1_scale",
+                 "bwd2_tap"):
         got = [x[name] for x in lines if name in x]
         if not got:
             continue
